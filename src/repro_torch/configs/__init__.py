@@ -1,0 +1,41 @@
+"""Registry of assigned architectures (public-literature pool) + input shapes."""
+from __future__ import annotations
+
+import importlib
+
+from .base import ArchConfig, INPUT_SHAPES, ShapeConfig  # noqa: F401
+
+_MODULES = {
+    "olmoe-1b-7b": "olmoe_1b_7b",
+    "zamba2-2.7b": "zamba2_2_7b",
+    "qwen2-vl-72b": "qwen2_vl_72b",
+    "deepseek-7b": "deepseek_7b",
+    "stablelm-12b": "stablelm_12b",
+    "rwkv6-1.6b": "rwkv6_1_6b",
+    "qwen2-0.5b": "qwen2_0_5b",
+    "mixtral-8x7b": "mixtral_8x7b",
+    "whisper-tiny": "whisper_tiny",
+    "gemma2-27b": "gemma2_27b",
+}
+
+ARCH_IDS = tuple(_MODULES)
+
+
+def get_config(arch_id: str) -> ArchConfig:
+    if arch_id not in _MODULES:
+        raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(_MODULES)}")
+    mod = importlib.import_module(f".{_MODULES[arch_id]}", __package__)
+    return mod.CONFIG
+
+
+def get_shape(shape_id: str) -> ShapeConfig:
+    return INPUT_SHAPES[shape_id]
+
+
+def all_configs() -> dict[str, ArchConfig]:
+    return {k: get_config(k) for k in ARCH_IDS}
+
+
+def assigned_pairs() -> list[tuple[str, str]]:
+    """All (arch, shape) pairs the dry-run must cover (skips handled there)."""
+    return [(a, s) for a in ARCH_IDS for s in INPUT_SHAPES]

@@ -1,0 +1,193 @@
+"""Architecture + input-shape config system (the port's own copy of
+``repro.configs.base``; the port imports nothing of the JAX package).
+
+Every assigned architecture gets one ``configs/<id>.py`` defining an
+:class:`ArchConfig` with the exact public numbers (cited).  ``reduced()``
+returns the smoke-test variant of the same family (<=2 layers, d_model<=512,
+<=4 experts) used by CPU tests; the full config runs on the card.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Literal
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_ff_expert: int
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01
+
+
+@dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    kind: Literal["rwkv6", "mamba2"]
+    state_size: int          # recurrent state per channel-head
+    head_size: int = 64
+    expand: int = 2          # mamba2 d_inner = expand * d_model
+    conv_kernel: int = 4     # mamba2 depthwise conv
+
+
+@dataclasses.dataclass(frozen=True)
+class HybridConfig:
+    attn_every: int          # one shared attention block every N ssm layers
+    shared_attn: bool = True # zamba2: ONE weight-shared attention block
+
+
+@dataclasses.dataclass(frozen=True)
+class EncDecConfig:
+    n_encoder_layers: int
+    encoder_seq: int         # encoder frames after the (stubbed) conv frontend
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    family: Literal["dense", "moe", "ssm", "hybrid", "vlm", "audio"]
+    source: str              # citation: arXiv id or model card
+
+    n_layers: int
+    d_model: int
+    n_heads: int             # 0 for attention-free archs
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+
+    head_dim: int | None = None           # defaults to d_model // n_heads
+    qkv_bias: bool = False
+    norm: Literal["rmsnorm", "layernorm"] = "rmsnorm"
+    act: Literal["silu", "gelu"] = "silu"
+    tie_embeddings: bool = False
+    rope_kind: Literal["rope", "mrope", "none", "sinusoidal"] = "rope"
+    rope_theta: float = 10_000.0
+    mrope_sections: tuple[int, ...] = ()   # M-RoPE dims split (t, h, w)
+    attn_softcap: float | None = None      # gemma2 logit soft-capping
+    final_softcap: float | None = None
+    sliding_window: int | None = None      # SWA window (mixtral, gemma2 local)
+    layer_pattern: tuple[str, ...] | None = None  # e.g. ("local","global") cycled
+
+    moe: MoEConfig | None = None
+    ssm: SSMConfig | None = None
+    hybrid: HybridConfig | None = None
+    encdec: EncDecConfig | None = None
+
+    # embeddings provided directly (VLM patch embeds / audio frames) — the
+    # allowed frontend-stub carve-out.
+    stub_frontend: bool = False
+
+    compute_dtype: str = "bfloat16"
+    param_dtype: str = "float32"
+
+    def __post_init__(self):
+        if self.head_dim is None and self.n_heads:
+            object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
+
+    @property
+    def is_attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
+    def supports_long_decode(self) -> bool:
+        """Sub-quadratic / O(1)-state archs run the 524288-token decode shape.
+
+        Dense full-attention archs skip it (DESIGN.md §6); SWA archs
+        (mixtral) qualify via the rolling-window KV cache; gemma2 does NOT
+        (its alternating pattern keeps full-attention global layers).
+        """
+        if self.family in ("ssm", "hybrid"):
+            return True
+        return self.sliding_window is not None and self.layer_pattern is None
+
+    @property
+    def n_params(self) -> int:
+        """Approximate parameter count (used for MODEL_FLOPS = 6*N*D)."""
+        D, F, V, L = self.d_model, self.d_ff, self.vocab, self.n_layers
+        hd = self.head_dim or 0
+        total = V * D * (1 if self.tie_embeddings else 2)
+        if self.family == "ssm" and self.ssm and self.ssm.kind == "rwkv6":
+            per = 4 * D * D + D * D + 2 * D * F  # r,k,v,g,o + channel-mix
+            return total + L * per
+        per = 0
+        if self.n_heads:
+            per += D * self.n_heads * hd + 2 * D * self.n_kv_heads * hd + self.n_heads * hd * D
+        if self.moe:
+            per_expert = 3 * D * self.moe.d_ff_expert
+            per += D * self.moe.n_experts + self.moe.n_experts * per_expert
+        else:
+            per += 3 * D * F if self.act == "silu" else 2 * D * F
+        if self.hybrid and self.ssm:
+            d_in = self.ssm.expand * D
+            N = self.ssm.state_size
+            nh = d_in // self.ssm.head_size
+            # mamba2 per layer: in_proj (z,x,B,C,dt) + out_proj + conv
+            per = D * (2 * d_in + 2 * N + nh) + d_in * D + 4 * (d_in + 2 * N)
+            # ONE weight-shared attention block (+ its MLP), stored once
+            total += 4 * D * self.n_heads * hd + 3 * D * F
+        if self.encdec:
+            total += self.encdec.n_encoder_layers * (4 * D * self.n_heads * hd + 2 * D * F)
+            per = 4 * D * self.n_heads * hd + 2 * D * F + 4 * D * self.n_heads * hd
+        return total + L * per
+
+    @property
+    def n_active_params(self) -> int:
+        """Active parameters per token (MoE uses top_k experts only)."""
+        if not self.moe:
+            return self.n_params
+        D, L = self.d_model, self.n_layers
+        inactive = L * (self.moe.n_experts - self.moe.top_k) * 3 * D * self.moe.d_ff_expert
+        return self.n_params - inactive
+
+    def reduced(self) -> "ArchConfig":
+        """Smoke-test variant: same family/features, tiny dims."""
+        d_model = min(self.d_model, 256)
+        n_heads = min(self.n_heads, 4) if self.n_heads else 0
+        head_dim = max(1, d_model // n_heads) if n_heads else None
+        kv = min(self.n_kv_heads, n_heads) if n_heads else 0
+        kv = max(1, kv) if n_heads else 0
+        changes: dict = dict(
+            n_layers=min(self.n_layers, 2),
+            d_model=d_model,
+            n_heads=n_heads,
+            n_kv_heads=kv,
+            head_dim=head_dim,
+            d_ff=min(self.d_ff, 512),
+            vocab=min(self.vocab, 512),
+            sliding_window=min(self.sliding_window, 16) if self.sliding_window else None,
+            mrope_sections=(head_dim // 2 - 2 * (head_dim // 8), head_dim // 8, head_dim // 8)
+            if self.mrope_sections and head_dim else (),
+        )
+        if self.moe:
+            changes["moe"] = dataclasses.replace(
+                self.moe, n_experts=min(self.moe.n_experts, 4),
+                top_k=min(self.moe.top_k, 2), d_ff_expert=min(self.moe.d_ff_expert, 256))
+        if self.ssm:
+            changes["ssm"] = dataclasses.replace(
+                self.ssm, state_size=min(self.ssm.state_size, 16),
+                head_size=min(self.ssm.head_size, 32))
+        if self.hybrid:
+            changes["hybrid"] = dataclasses.replace(self.hybrid, attn_every=1)
+        if self.encdec:
+            changes["encdec"] = dataclasses.replace(
+                self.encdec, n_encoder_layers=min(self.encdec.n_encoder_layers, 2),
+                encoder_seq=min(self.encdec.encoder_seq, 32))
+        if self.layer_pattern:
+            changes["n_layers"] = len(self.layer_pattern)
+        return dataclasses.replace(self, name=self.name + "-smoke", **changes)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    mode: Literal["train", "prefill", "decode"]
+
+
+INPUT_SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
