@@ -19,8 +19,24 @@ Phases, in order; each raises on failure and nothing is caught:
    pass must launch B1 exactly 2 x batch times.
 5. Exactness: the same widths at 2 layers in float32 (TF32 off): every hit
    backend's tokens must equal the miss path's.
-6. One JSON line naming every ported kernel with its launches in phase 4.
-7. Last line: ``{"ok": true, "device": {...}}``.
+6. Collective kernels vs their plain versions over 8 ranks emulated on the
+   card (and 6 for B4's rotation pairing), in bf16 and f32, at 64 KiB, 1 MiB,
+   16 MiB and 256 MiB gathered per rank: every B3 ``ring_all_gather`` and B4
+   ``all_to_all`` variant bit-equal; bf16 times beside the bytes bound
+   (input + output bytes at 3.35 TB/s), the plain version and the one-call library
+   yardstick.
+7. The collectives path (counts zeroed just before, read just after):
+   ``CommBackend('latte', axis_devices=8)`` runs all-gather, all-to-all,
+   reduce-scatter and all-reduce (f32) on the card, then one latte MoE layer
+   of olmoe-1b-7b at full width (d_model 2048, 64 experts, top-8, d_ff 1024,
+   capacity factor 1.25, bf16, 8 ranks x 512 tokens).  Checks: collectives
+   against numpy (AG/AA bit-equal, RS/AR atol 1e-4), B3 and B4 launched, the
+   MoE forward launching B4 exactly twice and bit-equal to the same layer
+   with B4's plain version; a float32 run at the same widths with no drops
+   against a dense oracle.
+8. One JSON line naming every ported kernel with its launches on its path
+   (phase 4 for B1/B2, phase 7 for B3/B4).
+9. Last line: ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without printing a result when no CUDA device is present.
 """
@@ -46,7 +62,14 @@ B, CTX, NEW = 4, 1024, 16                    # serving batch, context, new token
 BT = 16                                      # tokens per KV block
 ARCH = "qwen2-0.5b"
 SOURCES = {"paged_kv_gather": "src/repro_torch/kernels/csrc/paged_kv_gather.cu",
-           "paged_decode_attention": "src/repro_torch/kernels/csrc/decode_attention.cu"}
+           "paged_decode_attention": "src/repro_torch/kernels/csrc/decode_attention.cu",
+           "ring_all_gather": "src/repro_torch/kernels/csrc/ring_all_gather.cu",
+           "all_to_all": "src/repro_torch/kernels/csrc/ring_all_to_all.cu"}
+RANKS = 8                                    # emulated ranks of the collectives
+ROW = 1024                                   # elements per row of a rank's chunk
+GATHERED = {"64KiB": 64 << 10, "1MiB": 1 << 20, "16MiB": 16 << 20, "256MiB": 256 << 20}
+L2_BYTES = 50e6                              # H100 L2 cache
+MOE_ARCH, MOE_TOKENS = "olmoe-1b-7b", 512    # latte MoE: tokens per rank
 
 
 def log(msg: str) -> None:
@@ -371,6 +394,242 @@ def phase_exactness(dev) -> None:
         f"for {list(BACKENDS)}")
 
 
+# --------------------------------------------------------------------- 6 ----
+def _randn(g, shape, dtype, dev):
+    return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+
+def check_rank_kernels(dev) -> None:
+    """Every B3/B4 variant bit-equal to its plain version at the four sizes,
+    in bf16 and f32; bf16 times, one log line per size."""
+    from repro_torch.kernels.ring_all_gather import ops as ag
+    from repro_torch.kernels.ring_all_gather.ref import all_gather_ref
+    from repro_torch.kernels.ring_all_to_all import ops as aa
+    from repro_torch.kernels.ring_all_to_all.ref import all_to_all_ref
+    g = torch.Generator(device=dev).manual_seed(3)
+    n = RANKS
+    for label, gathered in GATHERED.items():
+        chunk_bytes = gathered // n
+        for dtype in (torch.bfloat16, torch.float32):
+            rows = chunk_bytes // (ROW * torch.finfo(dtype).bits // 8)
+            xs = _randn(g, (n, rows, ROW), dtype, dev)
+            want = all_gather_ref(xs)
+            for v in ag.VARIANTS:
+                if not torch.equal(ag.ring_all_gather(xs, v), want):
+                    raise AssertionError(f"ring_all_gather {v} {dtype} {label} differs")
+            ag.check()
+            xa = {m: _randn(g, (m, m, rows, ROW), dtype, dev) for m in (n, 6)}
+            for m, x in xa.items():
+                want_a = all_to_all_ref(x)
+                for v in aa.VARIANTS:
+                    if not torch.equal(aa.all_to_all(x, v), want_a):
+                        raise AssertionError(f"all_to_all {v} n={m} {dtype} {label} differs")
+            aa.check()
+            if dtype != torch.bfloat16:
+                continue
+            reps = 20
+            # bytes the function must move: AG reads the n shards once and
+            # writes n copies of them; AA reads and writes n x n chunks
+            ag_bytes, aa_bytes = (1 + n) * gathered, 2 * n * gathered
+            row = {"size": label, "per_rank_gathered_bytes": gathered, "dtype": "bfloat16",
+                   "ctas_per_rank": ag.ctas_per_rank(n, chunk_bytes),
+                   "ag_bound_ms": bound_ms(ag_bytes, 0, dtype)[0],
+                   "aa_bound_ms": bound_ms(aa_bytes, 0, dtype)[0], "bound_by": "bytes",
+                   "ag_l2_resident": ag_bytes <= L2_BYTES, "aa_l2_resident": aa_bytes <= L2_BYTES}
+            row["ag_ms"] = {v: device_ms(lambda v=v: ag.ring_all_gather(xs, v), reps=reps)
+                            for v in ag.VARIANTS}
+            row["ag_call_ms"] = {v: call_ms(lambda v=v: ag.ring_all_gather(xs, v), reps=reps)
+                                 for v in ag.VARIANTS}
+            row["ag_plain_ms"] = device_ms(lambda: all_gather_ref(xs), reps=reps)
+            row["ag_library_ms"] = device_ms(
+                lambda: xs.reshape(1, -1, ROW).expand(n, -1, -1).contiguous(), reps=reps)
+            x8 = xa[n]
+            row["aa_ms"] = {v: device_ms(lambda v=v: aa.all_to_all(x8, v), reps=reps)
+                            for v in aa.VARIANTS}
+            row["aa_call_ms"] = {v: call_ms(lambda v=v: aa.all_to_all(x8, v), reps=reps)
+                                 for v in aa.VARIANTS}
+            row["aa_n6_ms"] = {v: device_ms(lambda v=v: aa.all_to_all(xa[6], v), reps=reps)
+                               for v in aa.VARIANTS}
+            row["aa_plain_ms"] = device_ms(lambda: all_to_all_ref(x8), reps=reps)
+            row["aa_library_ms"] = device_ms(lambda: x8.transpose(0, 1).contiguous(), reps=reps)
+            if label == "64KiB":
+                row["ag_ms_per_step"] = {v: ms / (n // 2 if v.startswith("bcst") else n - 1)
+                                         for v, ms in row["ag_ms"].items()}
+                row["aa_ms_per_round"] = {v: ms / (n - 1) for v, ms in row["aa_ms"].items()}
+            ag.check()
+            aa.check()
+            log(f"[collective] {json.dumps(row)}")
+        del xs, xa, want, want_a
+        torch.cuda.empty_cache()
+    log(f"[collective] B3 (4 variants) and B4 (2 variants, n=8 and n=6) bit-equal to their "
+        f"plain versions in bf16 and f32 at {list(GATHERED)} gathered per rank; sizes whose "
+        f"input and output bytes fit in the 50 MB L2 run from cache (*_l2_resident)")
+
+
+# --------------------------------------------------------------------- 7 ----
+def _numpy_oracles(operands: dict, n: int) -> dict:
+    shard, chunks = operands["all_gather"], operands["all_to_all"]
+    total = chunks.sum(axis=0)
+    return {"all_gather": (np.broadcast_to(shard, (n,) + shard.shape), 0.0),
+            "all_to_all": (np.swapaxes(chunks, 0, 1), 0.0),
+            "reduce_scatter": (total, 1e-4),
+            "all_reduce": (np.broadcast_to(total, (n,) + total.shape), 1e-4)}
+
+
+def _moe_setup(dev, dtype, capacity_factor, seed=0):
+    from repro_torch.configs import get_config
+    from repro_torch.models.moe import init_moe
+    base = get_config(MOE_ARCH)
+    cfg = dataclasses.replace(base, compute_dtype=str(dtype)[6:], moe=dataclasses.replace(
+        base.moe, capacity_factor=capacity_factor))
+    g = torch.Generator(device=dev).manual_seed(seed)
+    params = {k: v.to(dtype) for k, v in init_moe(cfg, g).items()}
+    x = _randn(g, (RANKS, MOE_TOKENS, cfg.d_model), dtype, dev)
+    return cfg, params, x
+
+
+def _dense_oracle(cfg, p, x):
+    """No-drop dense MoE: every token's top-k experts' outputs, weighted
+    (tests/test_latte_moe.py's oracle)."""
+    D, K = cfg.d_model, cfg.moe.top_k
+    xf = x.reshape(-1, D)
+    # routed rank by rank, as the layer does, so both see the same products
+    probs = torch.cat([torch.softmax(xr @ p["router"], -1) for xr in x])
+    tp, te = torch.topk(probs, K, -1)
+    tp = tp / tp.sum(-1, keepdim=True)
+    w = torch.zeros_like(probs).scatter_(1, te, tp)
+    out = torch.zeros_like(xf)
+    for e in range(cfg.moe.n_experts):          # expert by expert, to bound memory
+        h = xf @ p["wg"][e]
+        y = (torch.nn.functional.silu(h) * (xf @ p["wu"][e])) @ p["wd"][e]
+        out += w[:, e:e + 1] * y
+    return out.reshape(x.shape)
+
+
+def phase_collectives_path(dev) -> dict:
+    """Phase 7: the collectives path with its launch counts, then its checks
+    and the B3/B4 times at the path's shapes."""
+    from repro_torch.core import collectives as coll
+    from repro_torch.core.backend import COLLECTIVES, CommBackend
+    from repro_torch.core.latte_moe import local_capacity, make_latte_moe
+    from repro_torch.kernels.ring_all_gather import ops as ag
+    from repro_torch.kernels.ring_all_gather.ref import all_gather_ref
+    from repro_torch.kernels.ring_all_to_all import ops as aa
+    from repro_torch.kernels.ring_all_to_all.ref import all_to_all_ref
+    n = RANKS
+    ranks = coll.make_ranks(n, dev)
+    be = CommBackend("latte", axis_devices=n)
+    rng = np.random.default_rng(7)
+    # f32 operands: a 2 MiB shard per rank (16 MiB gathered), and 8 chunks
+    # of 256 KiB per rank for the all-to-all and the reductions
+    operands = {"all_gather": rng.normal(size=(n, 512, ROW)).astype(np.float32)}
+    operands["all_to_all"] = rng.normal(size=(n, n, 64, ROW)).astype(np.float32)
+    operands["reduce_scatter"] = operands["all_reduce"] = operands["all_to_all"]
+    on_card = {k: torch.from_numpy(v).to(dev) for k, v in operands.items()}
+    cfg, params, x = _moe_setup(dev, torch.bfloat16, 1.25)
+    moe = make_latte_moe(cfg, ranks)
+    for name in COLLECTIVES:                      # warm-up: libraries, cuBLAS
+        getattr(be, name)(on_card[name], ranks)
+    moe(params, x)
+    torch.cuda.synchronize()
+
+    # ---- the path: counts zeroed just before, read just after ----
+    ag.launches = aa.launches = 0
+    results = {name: getattr(be, name)(on_card[name], ranks) for name in COLLECTIVES}
+    coll_launches = {"ring_all_gather": ag.launches, "all_to_all": aa.launches}
+    out, aux = moe(params, x)
+    torch.cuda.synchronize()
+    launches = {"ring_all_gather": ag.launches, "all_to_all": aa.launches}
+    ag.check()
+    aa.check()
+
+    moe_a2a = launches["all_to_all"] - coll_launches["all_to_all"]
+    if moe_a2a != 2:
+        raise AssertionError(f"the latte MoE forward launched all_to_all {moe_a2a} times, want 2")
+    if coll_launches["ring_all_gather"] == 0 or coll_launches["all_to_all"] == 0:
+        raise AssertionError(f"CommBackend did not launch both kernels: {coll_launches}")
+    chosen = {}
+    for name, (want, atol) in _numpy_oracles(operands, n).items():
+        got = results[name].cpu().numpy()
+        ok = np.array_equal(got, want) if atol == 0 else np.allclose(got, want, atol=atol)
+        if not ok:
+            raise AssertionError(f"CommBackend('latte').{name} differs from numpy")
+        size = be.message_bytes(name, on_card[name])
+        chosen[name] = {"bytes": size, "variant": be.choose(name, size)[0],
+                        "max_abs_err": float(np.abs(got - want).max())}
+    log(f"[path] CommBackend('latte', axis_devices={n}) on the card: {json.dumps(chosen)}; "
+        f"launches ring_all_gather={coll_launches['ring_all_gather']} "
+        f"all_to_all={coll_launches['all_to_all']}")
+
+    # ---- latte MoE checks ----
+    if out.shape != x.shape or not torch.isfinite(out).all() or not math.isfinite(aux.item()):
+        raise AssertionError("latte MoE output is misshapen or not finite")
+    plain = make_latte_moe(cfg, ranks, all_to_all=lambda xs, rk: all_to_all_ref(xs))
+    out_plain, aux_plain = plain(params, x)
+    if not (torch.equal(out, out_plain) and torch.equal(aux, aux_plain)):
+        raise AssertionError("latte MoE with B4 differs from the same layer with its plain version")
+    C = local_capacity(cfg, MOE_TOKENS)
+    send_shape = (n, n, cfg.moe.n_experts // n * C, cfg.d_model)
+    fwd = {"call_ms": call_ms(lambda: moe(params, x), reps=10, warmup=2),
+           **profile_step(lambda: moe(params, x))}
+    fwd["busy_share"] = fwd["busy_ms"] / fwd["call_ms"] if fwd["busy_ms"] else None
+    log(f"[path] latte MoE {MOE_ARCH} full width, bf16, {n} ranks x {MOE_TOKENS} tokens, "
+        f"capacity {C}: B4 launched 2 times in the forward; bit-equal to the plain-a2a "
+        f"layer; all-to-all operand {list(send_shape)}; forward {json.dumps(fwd)}")
+
+    # ---- B3 / B4 times at the path's shapes ----
+    xs_ag = on_card["all_gather"].reshape(n, 512, ROW)
+    ag_bound = bound_ms((1 + n) * xs_ag.numel() * 4, 0, torch.float32)
+    b3 = dict(kernel_ms=device_ms(lambda: ag.ring_all_gather(xs_ag, "bcst_b2b")),
+              plain_ms=device_ms(lambda: all_gather_ref(xs_ag)),
+              library_ms=device_ms(lambda: xs_ag.reshape(1, -1, ROW).expand(n, -1, -1)
+                                   .contiguous()),
+              call_ms=call_ms(lambda: ag.ring_all_gather(xs_ag, "bcst_b2b")),
+              bound_ms=ag_bound[0], bound_by=ag_bound[1],
+              max_abs_err=(ag.ring_all_gather(xs_ag, "bcst_b2b") - all_gather_ref(xs_ag))
+              .abs().max().item())
+    xs_aa = torch.randn(send_shape, device=dev).to(torch.bfloat16)
+    aa_bound = bound_ms(2 * xs_aa.numel() * 2, 0, torch.bfloat16)
+    b4 = dict(kernel_ms=device_ms(lambda: aa.all_to_all(xs_aa, "b2b")),
+              plain_ms=device_ms(lambda: all_to_all_ref(xs_aa)),
+              library_ms=device_ms(lambda: xs_aa.transpose(0, 1).contiguous()),
+              call_ms=call_ms(lambda: aa.all_to_all(xs_aa, "b2b")),
+              bound_ms=aa_bound[0], bound_by=aa_bound[1],
+              max_abs_err=(aa.all_to_all(xs_aa, "b2b").float() - all_to_all_ref(xs_aa).float())
+              .abs().max().item())
+    ag.check()
+    aa.check()
+    log(f"[kernel] ring_all_gather bcst_b2b f32 [{n},512,{ROW}] (the path's all-gather): "
+        f"{json.dumps(b3)}")
+    log(f"[kernel] all_to_all b2b bf16 {list(send_shape)} (the MoE's all-to-all): "
+        f"{json.dumps(b4)}")
+    del params, x, out, out_plain, on_card, results
+    torch.cuda.empty_cache()
+    return {"launches": launches, "ring_all_gather": b3, "all_to_all": b4}
+
+
+def phase_moe_exactness(dev) -> None:
+    """float32 (TF32 off) latte MoE at full width with no drops against the
+    dense oracle.  Capacity factor 8 = n_experts / top_k makes the local
+    capacity equal the 512 tokens of a rank, the most one expert can get."""
+    from repro_torch.core import collectives as coll
+    from repro_torch.core.latte_moe import local_capacity, make_latte_moe
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg, params, x = _moe_setup(dev, torch.float32, 8.0, seed=1)
+    assert local_capacity(cfg, MOE_TOKENS) == MOE_TOKENS
+    out, _ = make_latte_moe(cfg, coll.make_ranks(RANKS, dev))(params, x)
+    want = _dense_oracle(cfg, params, x)
+    err = (out - want).abs().max().item()
+    tol = 1e-4
+    if not err <= tol:
+        raise AssertionError(f"float32 latte MoE differs from the dense oracle by {err} > {tol}")
+    log(f"[exact] latte MoE {MOE_ARCH} float32 (TF32 off), no drops: max |latte - dense| = "
+        f"{err} <= {tol}, out max |y| = {want.abs().max().item()}")
+    del params, x, out, want
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA card",
@@ -386,14 +645,24 @@ def main() -> int:
     b2 = check_decode_attention(dev)
     launches = phase_serving(dev)
     phase_exactness(dev)
+    check_rank_kernels(dev)
+    path = phase_collectives_path(dev)
+    phase_moe_exactness(dev)
+    launches.update(path["launches"])
     kernels = []
     for name, row, replaces in (
             ("paged_kv_gather", b1, "src/repro/kernels/paged_kv_gather/paged_kv_gather.py:26"),
             ("paged_decode_attention", b2,
-             "src/repro/kernels/decode_attention/decode_attention.py:79")):
+             "src/repro/kernels/decode_attention/decode_attention.py:79"),
+            ("ring_all_gather", path["ring_all_gather"],
+             "src/repro/kernels/ring_all_gather/ring_all_gather.py:144"),
+            ("all_to_all", path["all_to_all"],
+             "src/repro/kernels/ring_all_to_all/ring_all_to_all.py:87")):
+        if name != "paged_decode_attention" and launches[name] == 0:
+            raise AssertionError(f"the main path never launched {name}")
         kernels.append({"name": name, "route": "cuda", "source": SOURCES[name],
                         "replaces": replaces, "launches": launches[name],
-                        "on_main_path": name == "paged_kv_gather",
+                        "on_main_path": name != "paged_decode_attention",
                         "max_abs_err": row["max_abs_err"], "ms": row["kernel_ms"],
                         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                         "bound_by": row["bound_by"], "library_ms": row["library_ms"]})

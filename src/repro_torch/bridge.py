@@ -18,6 +18,15 @@ No weight is transposed: the port keeps the reference's ``x @ w`` layout,
 * ``mlp.wg``/``wu``     [D, F],  ``mlp.wd`` [F, D]
 * ``ln1``/``ln2``/``final_norm``  ``scale`` [D] (+ ``bias`` for layernorm)
 
+MoE layer params (``moe_params_from_numpy``, the dict of ``init_moe``):
+
+* ``router``            [D, E]
+* ``wg``/``wu``         [E, D, F],  ``wd`` [E, F, D]
+
+held as they are; ``core.latte_moe.shard_experts`` gives rank r the experts
+``[r * e_local, (r + 1) * e_local)``, as ``P(axis, None, None)`` does in
+the reference.
+
 The only reshaping is unstacking the layer axis into the port's per-layer
 list.  Matmul weights go to the compute dtype and norm params to float32
 (``transformer.to_compute_dtype``).  This module imports neither JAX nor the
@@ -58,3 +67,18 @@ def params_from_numpy(cfg: ArchConfig, tree: dict, device="cuda") -> dict:
     if "unembed" in tree:
         params["unembed"] = _tensor(tree["unembed"], dev)
     return to_compute_dtype(cfg, params)
+
+
+def moe_params_from_numpy(cfg: ArchConfig, tree: dict, device="cuda") -> dict:
+    """Reference MoE layer params (``repro.models.moe.init_moe``, as numpy)
+    -> port params on ``device``, float32, no transpose."""
+    if cfg.moe is None:
+        raise ValueError(f"{cfg.name} has no MoE layer")
+    dev = resolve_device(device)
+    D, E, F = cfg.d_model, cfg.moe.n_experts, cfg.moe.d_ff_expert
+    want = {"router": (D, E), "wg": (E, D, F), "wu": (E, D, F), "wd": (E, F, D)}
+    out = {k: _tensor(tree[k], dev) for k in want}
+    for k, shape in want.items():
+        if tuple(out[k].shape) != shape:
+            raise ValueError(f"{k}: expected {shape}, got {tuple(out[k].shape)}")
+    return out

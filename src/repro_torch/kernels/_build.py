@@ -2,9 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface (no PyTorch headers), so
 ``nvcc`` compiles it in seconds.  The shared library goes to
-``build/kernels/`` at the repository root, named by a digest of its source
-and flags, so an edited source is rebuilt and a stale library is never
-loaded.  A build or load failure raises; nothing falls back.
+``build/kernels/`` at the repository root, named by a digest of its source,
+the shared headers (``csrc/*.cuh``) and the flags, so an edited source is
+rebuilt and a stale library is never loaded.  A build or load failure raises; nothing falls back.
 
     python -c "from repro_torch.kernels import _build; print(_build.build_all())"
 """
@@ -20,7 +20,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("paged_kv_gather", "decode_attention")
+SOURCES = ("paged_kv_gather", "decode_attention", "ring_all_gather", "ring_all_to_all")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -40,6 +40,7 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

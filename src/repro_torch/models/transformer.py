@@ -28,7 +28,7 @@ from . import layers as L
 
 # The families of later slices of the port.
 _LATER = {
-    "moe": "the collectives slice (latte MoE, expert all-to-all)",
+    "moe": "the MoE-family slice (models.moe layers inside the decoder stack)",
     "vlm": "the VLM slice (M-RoPE, stubbed patch embeddings)",
     "ssm": "the remaining-families slice (RWKV6)",
     "hybrid": "the remaining-families slice (Zamba2 / Mamba2)",

@@ -32,6 +32,10 @@ def test_port_imports_no_jax_and_no_reference():
     out = json.loads(r.stdout.strip().splitlines()[-1])
     assert "repro_torch.serve.engine" in out["imported"]
     assert "repro_torch.kernels.decode_attention.ops" in out["imported"]
+    for name in ("kernels.ring_all_gather.ops", "kernels.ring_all_to_all.ops",
+                 "core.collectives", "core.backend", "core.latte_moe", "models.moe",
+                 "launch.collectives"):
+        assert f"repro_torch.{name}" in out["imported"]
     loaded = out["loaded"]
     assert not [m for m in loaded if m == "jax" or m.startswith(("jax.", "jaxlib"))]
     assert not [m for m in loaded if m == "repro" or m.startswith("repro.")]
