@@ -9,8 +9,10 @@ Phases, in order; each raises on failure and nothing is caught:
 2. Build: compile every CUDA kernel of the port from ``src/repro_torch/kernels/csrc``.
 3. Kernels vs their plain PyTorch versions at the serving shapes: B1
    ``paged_kv_gather`` bit-equal (bf16, f32); B2 ``paged_decode_attention``
-   at atol/rtol 1e-5 (f32) and 2e-2 (bf16), with and without softcap, and
-   unchanged when K/V past each length are poisoned.  Times by CUDA events
+   at atol/rtol 1e-5 (f32) and 2e-2 (bf16), with and without softcap, also
+   for zero-length sequences (exactly 0), lengths 1 and bt + 1 (most of the
+   S splits empty) and a 4096-token context, and unchanged when K/V past
+   each length are poisoned.  Times by CUDA events
    (median of 50 after warm-up) beside each kernel's bound.
 4. Serving qwen2-0.5b at full width (24 layers, bf16, random weights from a
    seed): batch 4, context 1024, 16 new tokens; one miss pass, then a hit
@@ -24,7 +26,8 @@ Phases, in order; each raises on failure and nothing is caught:
    16 MiB and 256 MiB gathered per rank: every B3 ``ring_all_gather`` and B4
    ``all_to_all`` variant bit-equal; bf16 times beside the bytes bound
    (input + output bytes at 3.35 TB/s), the plain version and the one-call library
-   yardstick.
+   yardstick; at 64 KiB the time per ring step, whole (time / steps) and
+   marginal (8 ranks against 2, same chunks).
 7. The collectives path (counts zeroed just before, read just after):
    ``CommBackend('latte', axis_devices=8)`` runs all-gather, all-to-all,
    reduce-scatter and all-reduce (f32) on the card, then one latte MoE layer
@@ -140,6 +143,10 @@ def bound_ms(n_bytes: float, n_ops: float, dtype) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _randn(g, shape, dtype, dev):
+    return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+
 # ------------------------------------------------------------------ 1, 2 ----
 def phase_card() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -207,22 +214,32 @@ def _sdpa(q, k_pool, v_pool, tables, lengths):
     return out.reshape(Bq, KV, G, hd)
 
 
+def _decode_case(dev, g, dtype, lengths_l, KV, G, hd):
+    """Random q, pools and a table of distinct blocks for ``lengths_l``, one
+    entry more than the longest sequence needs."""
+    Bq = len(lengths_l)
+    mb = max(math.ceil(max(x, 1) / BT) for x in lengths_l) + 1
+    n_pool = Bq * mb + 8
+    tables = torch.randperm(n_pool, generator=g, device=dev)[:Bq * mb].reshape(Bq, mb)
+    return (_randn(g, (Bq, KV, G, hd), dtype, dev), _randn(g, (n_pool, BT, KV, hd), dtype, dev),
+            _randn(g, (n_pool, BT, KV, hd), dtype, dev), tables.to(torch.int32).contiguous(),
+            torch.tensor(lengths_l, dtype=torch.int32, device=dev))
+
+
 def check_decode_attention(dev) -> dict:
     from repro_torch.kernels.decode_attention import ops
     from repro_torch.kernels.decode_attention.ref import paged_decode_attention_ref
     KV, G, hd = 2, 7, 64                               # the qwen2-0.5b group
     lengths_l = [1024, 1000, 1037, 960]
-    mb = max(math.ceil(x / BT) for x in lengths_l) + 1
-    n_pool = B * mb + 8
     g = torch.Generator(device=dev).manual_seed(2)
-    tables = torch.randperm(n_pool, generator=g, device=dev)[:B * mb].reshape(B, mb)
-    tables = tables.to(torch.int32).contiguous()
-    lengths = torch.tensor(lengths_l, dtype=torch.int32, device=dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    # Edge cases besides the path shape: a zero-length sequence, lengths 1 and
+    # bt + 1 (most splits empty), and a 4096-token context.
+    edges = {"zero_one_bt+1": [0, 1, BT + 1, 0], "ctx4096": [4096, 4095, 1, 0]}
     result = {}
     for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
-        q = torch.randn((B, KV, G, hd), generator=g, device=dev).to(dtype)
-        kp = torch.randn((n_pool, BT, KV, hd), generator=g, device=dev).to(dtype)
-        vp = torch.randn((n_pool, BT, KV, hd), generator=g, device=dev).to(dtype)
+        q, kp, vp, tables, lengths = _decode_case(dev, g, dtype, lengths_l, KV, G, hd)
+        mb = tables.shape[1]
         for softcap in (None, 30.0):
             out = ops.decode_attention(q, kp, vp, tables, lengths, softcap=softcap)
             ref = paged_decode_attention_ref(q, kp, vp, tables, lengths, softcap=softcap)
@@ -231,6 +248,20 @@ def check_decode_attention(dev) -> dict:
             err = (out.float() - ref.float()).abs().max().item()
             log(f"[kernel] paged_decode_attention {str(dtype)[6:]} softcap={softcap}: "
                 f"max_abs_err={err} (tol {tol})")
+            for name, edge_l in edges.items():
+                case = _decode_case(dev, g, dtype, edge_l, KV, G, hd)
+                e_out = ops.decode_attention(*case, softcap=softcap)
+                e_ref = paged_decode_attention_ref(*case, softcap=softcap)
+                torch.cuda.synchronize()
+                torch.testing.assert_close(e_out.float(), e_ref.float(), atol=tol, rtol=tol)
+                zero = [b for b, x in enumerate(edge_l) if x == 0]
+                if torch.count_nonzero(e_out[zero]) != 0:
+                    raise AssertionError(f"paged_decode_attention {name}: a zero-length "
+                                         "sequence gave a nonzero output")
+                log(f"[kernel] paged_decode_attention {str(dtype)[6:]} softcap={softcap} "
+                    f"lengths={edge_l} (S={ops.num_splits(len(edge_l) * KV, case[3].shape[1], sms)}"
+                    f"): max_abs_err={(e_out.float() - e_ref.float()).abs().max().item()} "
+                    f"(tol {tol}); zero-length rows exactly 0")
         # poison every K/V position at or past each length: output must not change
         kp2, vp2 = kp.clone(), vp.clone()
         for b, length in enumerate(lengths_l):
@@ -257,10 +288,11 @@ def check_decode_attention(dev) -> dict:
             plain_ms=device_ms(lambda: paged_decode_attention_ref(q, kp, vp, tables, lengths)),
             library_ms=device_ms(lambda: _sdpa(q, kp, vp, tables, lengths)),
             call_ms=call_ms(lambda: ops.decode_attention(q, kp, vp, tables, lengths)),
-            bound_ms=bound, bound_by=by,
+            bound_ms=bound, bound_by=by, splits=ops.num_splits(B * KV, mb, sms),
             max_abs_err=(clean.float() - ref.float()).abs().max().item())
         log(f"[kernel] paged_decode_attention {str(dtype)[6:]} B={B} KV={KV} G={G} hd={hd} "
-            f"bt={BT} lengths={lengths_l}: poisoned tail unchanged; device ms: "
+            f"bt={BT} lengths={lengths_l} S={row['splits']} (grid {B * KV * row['splits']}): "
+            f"poisoned tail unchanged; device ms: "
             f"kernel={row['kernel_ms']} plain={row['plain_ms']} "
             f"library(gather+sdpa)={row['library_ms']}; bound={row['bound_ms'] * 1e3} us "
             f"({by}); kernel call incl. host={row['call_ms']} ms; "
@@ -395,10 +427,6 @@ def phase_exactness(dev) -> None:
 
 
 # --------------------------------------------------------------------- 6 ----
-def _randn(g, shape, dtype, dev):
-    return torch.randn(shape, generator=g, device=dev).to(dtype)
-
-
 def check_rank_kernels(dev) -> None:
     """Every B3/B4 variant bit-equal to its plain version at the four sizes,
     in bf16 and f32; bf16 times, one log line per size."""
@@ -455,6 +483,13 @@ def check_rank_kernels(dev) -> None:
             if label == "64KiB":
                 row["ag_ms_per_step"] = {v: ms / (n // 2 if v.startswith("bcst") else n - 1)
                                          for v, ms in row["ag_ms"].items()}
+                # the cost a ring step adds: the same chunks over 2 ranks (1
+                # step) against n ranks (n - 1 steps), without the fixed part
+                xs2 = xs[:2].contiguous()
+                row["ag_ms_n2"] = {v: device_ms(lambda v=v: ag.ring_all_gather(xs2, v),
+                                                reps=reps) for v in ("pcpy", "b2b")}
+                row["ag_ms_per_step_marginal"] = {
+                    v: (row["ag_ms"][v] - row["ag_ms_n2"][v]) / (n - 2) for v in row["ag_ms_n2"]}
                 row["aa_ms_per_round"] = {v: ms / (n - 1) for v, ms in row["aa_ms"].items()}
             ag.check()
             aa.check()

@@ -5,7 +5,11 @@ import torch
 
 
 def paged_decode_attention_ref(q, k_pool, v_pool, block_tables, lengths, *, softcap=None):
-    """q [B,KV,G,hd]; pools [n,bt,KV,hd]; tables [B,max_blocks]; lengths [B]."""
+    """q [B,KV,G,hd]; pools [n,bt,KV,hd]; tables [B,max_blocks]; lengths [B].
+
+    As in the Pallas kernel, positions at or past a sequence's length weigh
+    exactly 0 and the normalizer is floored at 1e-30, so a sequence of length
+    <= 0 gives 0."""
     B, KV, G, hd = q.shape
     _, bt, _, _ = k_pool.shape
     max_blocks = block_tables.shape[1]
@@ -19,8 +23,9 @@ def paged_decode_attention_ref(q, k_pool, v_pool, block_tables, lengths, *, soft
         s = torch.einsum("kgd,skd->kgs", q[b].float(), k) * scale
         if softcap:
             s = softcap * torch.tanh(s / softcap)
-        s = torch.where(pos[None, None, :] < lengths[b], s, -1e30)
-        w = torch.exp(s - s.amax(dim=-1, keepdim=True))
-        w = w / w.sum(dim=-1, keepdim=True)
-        outs.append(torch.einsum("kgs,skd->kgd", w, v))
+        valid = pos[None, None, :] < lengths[b]
+        s = torch.where(valid, s, -1e30)
+        w = torch.where(valid, torch.exp(s - s.amax(dim=-1, keepdim=True)), 0.0)
+        l = w.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+        outs.append(torch.einsum("kgs,skd->kgd", w, v) / l)
     return torch.stack(outs).to(q.dtype)

@@ -8,7 +8,9 @@ CUDA tensors go to the hand-written kernel, one launch for all ranks; CPU
 tensors to the plain version in ``ref.py``.  ``launches`` counts kernel
 launches (CPU calls do not count).  ``check()`` synchronises and raises if a
 wait of any earlier launch ran out of polls (a lost flag); every launch also
-raises first if an earlier one is known to have failed.
+raises first if an earlier one is known to have failed.  The kernel's flags live in
+persistent buffers with a call epoch (``_rank_sync.FlagBuffers``): no call
+zeroes anything.
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ import functools
 import torch
 
 from .. import _build
-from .._rank_sync import MAX_RANKS, check_error, declare, rank_pointers
+from .._rank_sync import MAX_RANKS, FlagBuffers, check_error, declare, launch
 from .ref import all_gather_ref
 
 NAME = "ring_all_gather"
@@ -35,9 +37,10 @@ def _lib():
     return lib
 
 
-def flags_per_rank(n: int) -> int:
-    """Barrier + send/recv flags of both streams, one per step."""
-    return 1 + 4 * max(n - 1, 1)
+@functools.cache
+def _flags() -> FlagBuffers:
+    """Persistent flag buffers of this kernel (see ``_rank_sync.FlagBuffers``)."""
+    return FlagBuffers(getattr(_lib(), f"{NAME}_flag_ints"))
 
 
 def ctas_per_rank(n: int, chunk_bytes: int, requested: int = 0, device: int = 0) -> int:
@@ -47,7 +50,7 @@ def ctas_per_rank(n: int, chunk_bytes: int, requested: int = 0, device: int = 0)
 
 def check() -> None:
     torch.cuda.synchronize()
-    check_error(_lib(), NAME)
+    check_error(_lib(), NAME, _flags())
 
 
 def ring_all_gather(xs: torch.Tensor, variant: str = "b2b", *,
@@ -71,17 +74,13 @@ def ring_all_gather(xs: torch.Tensor, variant: str = "b2b", *,
     if not xs.is_contiguous():
         raise ValueError("xs must be contiguous")
     lib = _lib()
-    check_error(lib, NAME)
+    check_error(lib, NAME, _flags())
     out = torch.empty((n, n * chunk, f), dtype=xs.dtype, device=xs.device)
     if out.numel() == 0:
         return out
     defer, bidir = VARIANTS[variant]
-    flags = torch.zeros(n * flags_per_rank(n), dtype=torch.int32, device=xs.device)
-    err = lib.ring_all_gather(rank_pointers(xs), rank_pointers(out), n,
-                              chunk * f * xs.element_size(), parts or 0, defer, bidir,
-                              flags.data_ptr(), xs.device.index or 0,
-                              torch.cuda.current_stream(xs.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"{NAME} launch failed: CUDA error {err}")
+    # the bidirectional variants raise the leftward flags too: a buffer of their own
+    launch(lib, NAME, _flags(), xs, out, chunk * f * xs.element_size(), parts,
+           (defer, bidir), layout=bidir)
     launches += 1
     return out

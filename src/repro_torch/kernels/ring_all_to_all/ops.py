@@ -7,7 +7,9 @@ None, None, None))`` in the reference), and returns ``out[i, j] = xs[j, i]``.
 CUDA tensors go to the hand-written kernel, one launch for all ranks; CPU
 tensors to the plain version in ``ref.py``.  ``launches`` counts kernel
 launches (CPU calls do not count); ``check()`` synchronises and raises if a
-wait of an earlier launch ran out of polls.
+wait of an earlier launch ran out of polls.  The kernel's flags live in
+persistent buffers with a call epoch (``_rank_sync.FlagBuffers``): no call
+zeroes anything.
 """
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ import functools
 import torch
 
 from .. import _build
-from .._rank_sync import MAX_RANKS, check_error, declare, rank_pointers
+from .._rank_sync import MAX_RANKS, FlagBuffers, check_error, declare, launch
 from .ref import all_to_all_ref
 
 NAME = "ring_all_to_all"
@@ -33,9 +35,10 @@ def _lib():
     return lib
 
 
-def flags_per_rank(n: int) -> int:
-    """Barrier + send/recv flags, one per round."""
-    return 1 + 2 * max(n - 1, 1)
+@functools.cache
+def _flags() -> FlagBuffers:
+    """Persistent flag buffers of this kernel (see ``_rank_sync.FlagBuffers``)."""
+    return FlagBuffers(getattr(_lib(), f"{NAME}_flag_ints"))
 
 
 def ctas_per_rank(n: int, chunk_bytes: int, requested: int = 0, device: int = 0) -> int:
@@ -45,7 +48,7 @@ def ctas_per_rank(n: int, chunk_bytes: int, requested: int = 0, device: int = 0)
 
 def check() -> None:
     torch.cuda.synchronize()
-    check_error(_lib(), NAME)
+    check_error(_lib(), NAME, _flags())
 
 
 def all_to_all(xs: torch.Tensor, variant: str = "b2b", *,
@@ -69,16 +72,11 @@ def all_to_all(xs: torch.Tensor, variant: str = "b2b", *,
     if not xs.is_contiguous():
         raise ValueError("xs must be contiguous")
     lib = _lib()
-    check_error(lib, NAME)
+    check_error(lib, NAME, _flags())
     out = torch.empty_like(xs)
     if out.numel() == 0:
         return out
-    flags = torch.zeros(n * flags_per_rank(n), dtype=torch.int32, device=xs.device)
-    err = lib.ring_all_to_all(rank_pointers(xs), rank_pointers(out), n,
-                              xs[0, 0].numel() * xs.element_size(), parts or 0,
-                              VARIANTS[variant], flags.data_ptr(), xs.device.index or 0,
-                              torch.cuda.current_stream(xs.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"{NAME} launch failed: CUDA error {err}")
+    launch(lib, NAME, _flags(), xs, out, xs[0, 0].numel() * xs.element_size(), parts,
+           (VARIANTS[variant],), layout=0)
     launches += 1
     return out

@@ -53,7 +53,14 @@ def test_gather_kernel_bit_equal(cuda, dtype, n_pool, bt, dkv, n):
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("softcap", [None, 30.0])
 @pytest.mark.parametrize("B,KV,G,hd,bt,mb", [(4, 2, 7, 64, 16, 66), (4, 4, 2, 256, 8, 3),
-                                             (1, 1, 8, 128, 16, 2)])
+                                             (1, 1, 8, 128, 16, 2),
+                                             # rows of 72/144, 68/136 and 66/132
+                                             # bytes: 8-, 4- and 2-byte copies
+                                             (2, 2, 3, 36, 16, 4), (2, 2, 3, 34, 16, 4),
+                                             (2, 2, 3, 33, 8, 5),
+                                             # f32 blocks too large for two stages
+                                             # in shared memory: half-block tiles
+                                             (2, 1, 4, 256, 64, 3)])
 def test_decode_attention_kernel(cuda, dtype, tol, softcap, B, KV, G, hd, bt, mb):
     g = torch.Generator(device=cuda).manual_seed(B * 31 + mb)
     n_pool = B * mb + 2
@@ -68,6 +75,32 @@ def test_decode_attention_kernel(cuda, dtype, tol, softcap, B, KV, G, hd, bt, mb
     torch.cuda.synchronize()
     assert da_ops.launches == before + 1
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("softcap", [None, 30.0])
+@pytest.mark.parametrize("G,hd", [(7, 64), (2, 256)])
+def test_decode_attention_kernel_split_edges(cuda, dtype, tol, softcap, G, hd):
+    """Lengths 0 and 1 and bt + 1 (most splits empty), and contexts of 4096
+    and 4095 tokens in a table of 257 blocks: the kernel matches its plain
+    version, and a sequence of length 0 gives exactly 0."""
+    B, KV, bt, mb = 6, 2, 16, 257
+    lengths_l = [0, 1, bt + 1, 4096, 4095, 0]
+    g = torch.Generator(device=cuda).manual_seed(G * hd)
+    n_pool = B * mb + 2
+    q = torch.randn((B, KV, G, hd), generator=g, device=cuda).to(dtype)
+    kp = torch.randn((n_pool, bt, KV, hd), generator=g, device=cuda).to(dtype)
+    vp = torch.randn((n_pool, bt, KV, hd), generator=g, device=cuda).to(dtype)
+    tables = torch.randperm(n_pool, generator=g, device=cuda)[:B * mb].reshape(B, mb)
+    tables = tables.to(torch.int32).contiguous()
+    lengths = torch.tensor(lengths_l, dtype=torch.int32, device=cuda)
+    before = da_ops.launches
+    out = da_ops.decode_attention(q, kp, vp, tables, lengths, softcap=softcap)
+    ref = paged_decode_attention_ref(q, kp, vp, tables, lengths, softcap=softcap)
+    torch.cuda.synchronize()
+    assert da_ops.launches == before + 1
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+    assert torch.count_nonzero(out[0]) == 0 and torch.count_nonzero(out[5]) == 0
 
 
 def test_engine_hit_equals_miss_float32(cuda, monkeypatch):
@@ -174,3 +207,56 @@ def test_latte_moe_on_card_matches_cpu(cuda, monkeypatch):
     assert aa_ops.launches - before == 2
     torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=1e-5)
     torch.testing.assert_close(aux.cpu(), want_aux, atol=1e-6, rtol=1e-5)
+
+
+@pytest.mark.parametrize("variant", sorted(ag_ops.VARIANTS))
+@pytest.mark.parametrize("shape", [(8, 7, 143), (8, 13, 100), (6, 5, 31)])
+def test_ring_all_gather_forced_parts(cuda, variant, shape):
+    """1, 3 and the most CTAs per rank, over chunks whose words do not divide
+    evenly among them: 4-, 16- and 2-byte words, ragged shares."""
+    n = shape[0]
+    most = torch.cuda.get_device_properties(cuda).multi_processor_count // n
+    g = torch.Generator(device=cuda).manual_seed(sum(shape))
+    for dtype in (torch.float32, torch.bfloat16):
+        xs = torch.randn(shape, generator=g, device=cuda).to(dtype)
+        for parts in (1, 3, most):
+            out = ag_ops.ring_all_gather(xs, variant, parts=parts)
+            ag_ops.check()
+            assert torch.equal(out, all_gather_ref(xs)), (dtype, parts)
+
+
+@pytest.mark.parametrize("kernel", ["ring_all_gather", "all_to_all"])
+def test_rank_kernels_back_to_back(cuda, kernel):
+    """200 calls with no synchronisation in between, every variant in turn
+    and two sizes (two flag buffers): each call waits on its own epoch, so
+    every result is bit-equal to the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    if kernel == "ring_all_gather":
+        fn, ref, variants = ag_ops.ring_all_gather, all_gather_ref, sorted(ag_ops.VARIANTS)
+        inputs = [torch.randn((8, c, 256), generator=g, device=cuda) for c in (4, 96)]
+    else:
+        fn, ref, variants = aa_ops.all_to_all, all_to_all_ref, sorted(aa_ops.VARIANTS)
+        inputs = [torch.randn((8, 8, c, 64), generator=g, device=cuda) for c in (2, 96)]
+    outs = []
+    for i in range(200):
+        xs = inputs[i % 2]
+        outs.append((xs, fn(xs, variants[i % len(variants)])))
+    (ag_ops if kernel == "ring_all_gather" else aa_ops).check()
+    for i, (xs, out) in enumerate(outs):
+        assert torch.equal(out, ref(xs)), i
+
+
+def test_rank_kernels_refused_launch_then_good_call(cuda):
+    """A refused launch leaves no flag buffer behind it in a bad state: the
+    next calls, with the default and with the refused size, are right."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    xs = torch.randn((8, 4, 128), device=cuda)
+    for _ in range(2):
+        before = ag_ops.launches
+        with pytest.raises(RuntimeError, match="launch failed"):
+            ag_ops.ring_all_gather(xs, "b2b", parts=sms // 8 + 1)
+        assert ag_ops.launches == before
+        assert torch.equal(ag_ops.ring_all_gather(xs, "b2b"), all_gather_ref(xs))
+        assert torch.equal(ag_ops.ring_all_gather(xs, "b2b", parts=sms // 8),
+                           all_gather_ref(xs))
+        ag_ops.check()

@@ -154,3 +154,99 @@ def test_decode_attention_rejects_bad_operands():
         da_ops.decode_attention(q, kp.bfloat16(), vp, tables, lengths)
     with pytest.raises(ValueError):      # pool head_dim != q's
         da_ops.decode_attention(q, kp[..., :32], vp[..., :32], tables, lengths)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("lengths", [[0, 20], [0, 0]])
+def test_decode_attention_zero_length(dtype, lengths, zero_launches):
+    """A sequence of length 0 gives 0, as the Pallas kernel does (its
+    normalizer stays 0 and is floored at 1e-30); the others are unchanged."""
+    case = _attn_case(5, 2, 2, 4, 64, 16, 3, lengths=lengths, npool=8)
+    got, want = _run_both(case, dtype)
+    np.testing.assert_allclose(got, want, atol=TOL[dtype], rtol=TOL[dtype])
+    for b, length in enumerate(lengths):
+        if length == 0:
+            assert not np.any(want[b]) and not np.any(got[b])
+    assert da_ops.launches == 0
+
+
+# ---------------------------------------------------- B2 split plan ----
+@pytest.mark.parametrize("seed", range(6))
+def test_decode_attention_split_plan(seed):
+    """Every valid block of every sequence falls in exactly one split, no
+    split covers a block at or after ceil(length / bt) (or past the table),
+    and the grid stays within WAVES * SMs + B * KV - 1 CTAs."""
+    rng = np.random.default_rng(seed)
+    B, KV = int(rng.integers(1, 9)), int(rng.choice([1, 2, 4, 8]))
+    bt, mb = int(rng.choice([8, 16, 32])), int(rng.integers(1, 300))
+    sms = int(rng.choice([1, 16, 132]))
+    lengths = rng.integers(-3, mb * bt + 40, B)
+    lengths[0] = 0
+    tables = rng.integers(0, 4 * mb, (B, mb))
+    S = da_ops.num_splits(B * KV, mb, sms)
+    assert 1 <= S <= mb
+    assert B * KV * S <= max(B * KV, da_ops.WAVES * sms + B * KV - 1)
+    ranges = da_ops.split_ranges(torch.from_numpy(lengths.astype(np.int32)), bt, mb, S).numpy()
+    assert ranges.shape == (B, S, 2)
+    for b in range(B):
+        n_valid = min(max(-(-int(lengths[b]) // bt), 0), mb)
+        covered = np.zeros(mb, int)
+        for lo, hi in ranges[b]:
+            assert 0 <= lo <= hi <= n_valid
+            covered[lo:hi] += 1
+        np.testing.assert_array_equal(covered, (np.arange(mb) < n_valid).astype(int))
+        # the table entries the splits read are those of the valid blocks
+        read = np.concatenate([tables[b, lo:hi] for lo, hi in ranges[b]])
+        np.testing.assert_array_equal(read, tables[b, :n_valid])
+
+
+def test_decode_attention_split_count_at_the_path_shape():
+    """qwen2-0.5b decode (B 4, KV 2, 65 blocks) on 132 SMs: 33 splits of 2 blocks."""
+    S = da_ops.num_splits(4 * 2, 66, 132)
+    assert S == 33
+    ranges = da_ops.split_ranges(torch.tensor([1037], dtype=torch.int32), 16, 66, S)[0]
+    assert int((ranges[:, 1] - ranges[:, 0]).max()) == 2
+
+
+# ------------------------------------------------ B3/B4 flag buffers ----
+def test_flag_buffers_epochs():
+    """One zeroed buffer per (device, stream, n, parts, layout); each call on
+    it takes the next epoch; a buffer not given back (a refused or failed
+    launch) is dropped and the next call starts a zeroed one at epoch 1; a
+    buffer is replaced before epoch * 2 * parts could pass INT32_MAX."""
+    from repro_torch.kernels._rank_sync import INT32_MAX, FlagBuffers
+    sizes = []
+    flags = FlagBuffers(lambda n, parts: sizes.append((n, parts)) or n * parts + 3)
+    cpu = torch.device("cpu")
+    key, buf, epoch = flags.take(cpu, 7, 8, 2, 0)
+    assert epoch == 1 and buf.dtype == torch.int32 and buf.numel() == 19
+    assert not torch.any(buf)
+    flags.give_back(key, buf, epoch)
+    key2, buf2, epoch2 = flags.take(cpu, 7, 8, 2, 0)
+    assert buf2 is buf and epoch2 == 2
+    flags.give_back(key2, buf2, epoch2)
+    # other stream, other parts, other layout: buffers of their own
+    for args in ((cpu, 8, 8, 2, 0), (cpu, 7, 8, 3, 0), (cpu, 7, 8, 2, 1)):
+        k, b, e = flags.take(*args)
+        assert e == 1 and b is not buf
+        flags.give_back(k, b, e)
+    assert len(flags) == 4
+    # a launch that is refused never gives its buffer back
+    key3, buf3, epoch3 = flags.take(cpu, 7, 8, 2, 0)
+    assert epoch3 == 3
+    key4, buf4, epoch4 = flags.take(cpu, 7, 8, 2, 0)
+    assert buf4 is not buf3 and epoch4 == 1
+    flags.give_back(key4, buf4, epoch4)
+    # int32 wrap: the epoch whose targets would pass INT32_MAX gets a new buffer
+    parts = 16
+    k, b, _ = flags.take(cpu, 7, 8, parts, 0)
+    last = INT32_MAX // (2 * parts)
+    b.fill_(5)
+    flags.give_back(k, b, last - 1)
+    k, b2, e = flags.take(cpu, 7, 8, parts, 0)
+    assert b2 is b and e == last and e * 2 * parts <= INT32_MAX
+    flags.give_back(k, b2, e)
+    k, b3, e = flags.take(cpu, 7, 8, parts, 0)
+    assert b3 is not b and e == 1 and not torch.any(b3)
+    flags.clear()
+    assert len(flags) == 0
