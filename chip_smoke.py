@@ -8,7 +8,8 @@ Phases, in order; each raises on failure and nothing is caught:
 1. Card: name and power limit from nvidia-smi.
 2. Build: compile every CUDA kernel of the port from ``src/repro_torch/kernels/csrc``.
 3. Kernels vs their plain PyTorch versions at the serving shapes: B1
-   ``paged_kv_gather`` bit-equal (bf16, f32); B2 ``paged_decode_attention``
+   ``paged_kv_gather`` bit-equal (bf16, f32) at the pool shapes of both
+   served models; B2 ``paged_decode_attention``
    at atol/rtol 1e-5 (f32) and 2e-2 (bf16), with and without softcap, also
    for zero-length sequences (exactly 0), lengths 1 and bt + 1 (most of the
    S splits empty) and a 4096-token context, and unchanged when K/V past
@@ -17,8 +18,9 @@ Phases, in order; each raises on failure and nothing is caught:
 4. Serving qwen2-0.5b at full width (24 layers, bf16, random weights from a
    seed): batch 4, context 1024, 16 new tokens; one miss pass, then a hit
    through each fetch backend.  Fetched blocks must be bit-equal to the
-   saved ones, hit tokens identical across backends, and the ``kernel``
-   pass must launch B1 exactly 2 x batch times.
+   saved ones, hit tokens identical across backends, the ``kernel``
+   pass must launch B1 exactly 2 x batch times, and every hit must carry a
+   modeled (MI300X simulator) fetch latency > 0, a miss none.
 5. Exactness: the same widths at 2 layers in float32 (TF32 off): every hit
    backend's tokens must equal the miss path's.
 6. Collective kernels vs their plain versions over 8 ranks emulated on the
@@ -37,15 +39,24 @@ Phases, in order; each raises on failure and nothing is caught:
    MoE forward launching B4 exactly twice and bit-equal to the same layer
    with B4's plain version; a float32 run at the same widths with no drops
    against a dense oracle.
-8. One JSON line naming every ported kernel with its launches on its path
-   (phase 4 for B1/B2, phase 7 for B3/B4).
-9. Last line: ``{"ok": true, "device": {...}}``.
+8. Serving olmoe-1b-7b at full width (16 layers, d_model 2048, 16 heads,
+   64 experts, top-8, d_ff_expert 1024, capacity factor 1.25, vocab 50,304,
+   bf16, random weights from a seed) with phase 4's batch, context, checks
+   and times; then its exactness pass as phase 5, at capacity factor 8
+   (= experts / top-k, no drops: a hit routes its first token among 4
+   tokens, the miss among 4 x 1024).
+9. The variants ``CommBackend('latte', axis_devices=n)`` picks for n = 4, 8
+   and 16, from modeled TPU-pod tables of the port's own DMA simulator.
+10. One JSON line naming every ported kernel with its launches on its path
+    (phases 4 and 8 for B1/B2, phase 7 for B3/B4).
+11. Last line: ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without printing a result when no CUDA device is present.
 """
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -170,11 +181,14 @@ def phase_build() -> None:
 
 
 # --------------------------------------------------------------------- 3 ----
-def check_gather(dev) -> dict:
+def check_gather(dev, arch: str) -> dict:
+    """B1 at the pool shape the ``kernel`` fetch gives it when serving
+    ``arch``: one context's blocks, [CTX / BT, BT, layers x KV heads x hd]."""
+    from repro_torch.configs import get_config
     from repro_torch.kernels.paged_kv_gather import ops
     from repro_torch.kernels.paged_kv_gather.ref import paged_kv_gather_ref
-    cfg_layers, kv, hd = 24, 2, 64
-    n, dkv = CTX // BT, cfg_layers * kv * hd           # 64 blocks of [16, 3072]
+    cfg = get_config(arch)
+    n, dkv = CTX // BT, cfg.n_layers * cfg.n_kv_heads * cfg.head_dim
     g = torch.Generator(device=dev).manual_seed(1)
     tbl = torch.randperm(n, generator=g, device=dev).to(torch.int32)
     tbl[::9] = tbl[1]                                  # repeated blocks
@@ -194,11 +208,14 @@ def check_gather(dev) -> dict:
                    library_ms=device_ms(lambda: pool.index_select(0, tbl)),
                    call_ms=call_ms(lambda: ops.gather_blocks(pool, tbl)),
                    bound_ms=bound, bound_by=by, max_abs_err=err)
-        log(f"[kernel] paged_kv_gather {str(dtype)[6:]} [{n},{BT},{dkv}] table {n} (repeats): "
+        log(f"[kernel] paged_kv_gather ({arch}) {str(dtype)[6:]} [{n},{BT},{dkv}] table {n} "
+            f"(repeats): "
             f"bit-equal; device ms: kernel={row['kernel_ms']} plain={row['plain_ms']} "
             f"library(index_select)={row['library_ms']}; bound={row['bound_ms'] * 1e3} us "
             f"({by}); kernel call incl. host={row['call_ms']} ms; max_abs_err={err}")
         result[dtype] = row
+    del pool, out, ref
+    torch.cuda.empty_cache()
     return result[torch.bfloat16]
 
 
@@ -310,19 +327,23 @@ def _engine(cfg, dev, seed=0):
     return ServeEngine(model, params, device=dev)
 
 
-def phase_serving(dev) -> dict:
+def phase_serving(dev, arch: str, seed: int) -> dict:
+    """One serving path at full width: warm-up, then the main path with the
+    kernels' counts zeroed just before and read just after, its checks, and
+    its times.  Returns the path's launch counts."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.decode_attention import ops as da_ops
     from repro_torch.kernels.paged_kv_gather import ops as gather_ops
     from repro_torch.serve.host_store import BACKENDS
-    cfg = get_config(ARCH)
-    eng = _engine(cfg, dev)
-    rng = np.random.default_rng(0)
+    cfg = get_config(arch)
+    eng = _engine(cfg, dev, seed)
+    rng = np.random.default_rng(seed)
     prompts = rng.integers(0, cfg.vocab, (B, CTX)).astype(np.int32)
     keys = [f"ctx-{i}" for i in range(B)]
 
     # Warm-up at the served shape on other contexts: cuBLAS handles, the
-    # kernels' first load and the pinned host buffers' first allocation.
+    # kernels' first load, the pinned host buffers' first allocation and the
+    # modeled fetch latencies (memoized per shape).
     warm = [f"warm-{i}" for i in range(B)]
     for backend in (None,) + BACKENDS:
         eng.generate(prompts, warm, 2, fetch_backend=backend)
@@ -340,30 +361,37 @@ def phase_serving(dev) -> dict:
 
     if miss.request_stats[0].cache_hit or not all(h.request_stats[0].cache_hit
                                                    for h in hits.values()):
-        raise AssertionError("expected one miss pass, then hits")
+        raise AssertionError(f"{arch}: expected one miss pass, then hits")
     for backend, d in delta.items():
         want = 2 * B if backend == "kernel" else 0
         if d != want:
-            raise AssertionError(f"{backend} pass launched paged_kv_gather {d} times, want {want}")
+            raise AssertionError(f"{arch}: {backend} pass launched paged_kv_gather {d} times, "
+                                 f"want {want}")
     if launches["paged_kv_gather"] == 0:
-        raise AssertionError("the main path never launched paged_kv_gather")
+        raise AssertionError(f"{arch}: the main path never launched paged_kv_gather")
     for res in (miss, *hits.values()):
         if res.tokens.shape != (B, NEW) or res.tokens.min() < 0 or res.tokens.max() >= cfg.vocab:
-            raise AssertionError(f"bad tokens {res.tokens.shape}")
+            raise AssertionError(f"{arch}: bad tokens {res.tokens.shape}")
     for backend in BACKENDS:
         if not np.array_equal(hits[backend].tokens, hits["pcpy"].tokens):
-            raise AssertionError(f"hit tokens of {backend} differ from pcpy's")
+            raise AssertionError(f"{arch}: hit tokens of {backend} differ from pcpy's")
+    if any(st.fetch_modeled_s != 0.0 for st in miss.request_stats):
+        raise AssertionError(f"{arch}: a miss carries a modeled fetch latency")
+    for backend, res in hits.items():
+        if not all(st.fetch_modeled_s > 0.0 for st in res.request_stats):
+            raise AssertionError(f"{arch}: a {backend} hit has no modeled fetch latency")
 
     for key in keys:                                   # fetched == saved, bit for bit
         kb, vb = eng.store.host_blocks(key)
         for backend in BACKENDS:
             res = eng.store.fetch(key, backend)
             if not (torch.equal(res.k_blocks.cpu(), kb) and torch.equal(res.v_blocks.cpu(), vb)):
-                raise AssertionError(f"{backend} fetched blocks differ from the saved ones")
+                raise AssertionError(f"{arch}: {backend} fetched blocks differ from the saved ones")
     probe = torch.as_tensor(prompts[:1, :64], device=dev)
-    logits, _, _ = eng.model.forward(eng.params, {"tokens": probe})
-    if logits.shape != (1, 64, cfg.vocab) or not torch.isfinite(logits).all():
-        raise AssertionError("non-finite or misshapen logits")
+    logits, aux, _ = eng.model.forward(eng.params, {"tokens": probe})
+    if logits.shape != (1, 64, cfg.vocab) or not torch.isfinite(logits).all() \
+            or not math.isfinite(aux.item()):
+        raise AssertionError(f"{arch}: non-finite or misshapen logits")
 
     # Two more passes of each path for the time medians (the main path's
     # pass is the first sample); a miss needs contexts not yet stored.
@@ -388,10 +416,13 @@ def phase_serving(dev) -> dict:
              "hit_first_token_kernel": lambda: eng.first_token(prompts, keys,
                                                                fetch_backend="kernel",
                                                                capacity=CTX + NEW + 1)}
-    step_ms = {name: {"call_ms": call_ms(fn, reps=5, warmup=1), **profile_step(fn)}
-               for name, fn in steps.items()}
+    step_ms = {}
+    for name, fn in steps.items():
+        row = {"call_ms": call_ms(fn, reps=5, warmup=1), **profile_step(fn)}
+        row["busy_share"] = row["busy_ms"] / row["call_ms"] if row["busy_ms"] else None
+        step_ms[name] = row
     n_blocks, block_bytes = eng.store.blocks_for(keys[0])
-    out = {"arch": ARCH, "dtype": cfg.compute_dtype, "batch": B, "ctx": CTX, "new": NEW,
+    out = {"arch": arch, "dtype": cfg.compute_dtype, "batch": B, "ctx": CTX, "new": NEW,
            "kv_blocks_per_ctx": n_blocks, "kv_bytes_per_ctx": n_blocks * block_bytes,
            "ttft_batch_ms_median": {k: statistics.median(v) for k, v in ttft.items()},
            "ttft_batch_ms_samples": ttft,
@@ -403,27 +434,43 @@ def phase_serving(dev) -> dict:
                                            for b in BACKENDS},
            "launches": launches}
     log(f"[serve] {json.dumps({'serving': out})}")
+    modeled = {b: hits[b].request_stats[0].fetch_modeled_s * B * 1e3 for b in BACKENDS}
+    log(f"[serve] {arch} modeled (MI300X simulator, not measured on this card) fetch latency "
+        f"of the batch's KV, ms: {json.dumps(modeled)}")
+    del eng, caches, steps, rows, hits, miss
+    gc.collect()
+    torch.cuda.empty_cache()
     return launches
 
 
-def phase_exactness(dev) -> None:
+def phase_exactness(dev, arch: str, seed: int) -> None:
+    """The same widths at 2 layers in float32 (TF32 off), so hit and miss
+    differ only in summation order, as on the CPU; an MoE config runs at
+    capacity factor n_experts / top_k, where no choice is dropped (a hit
+    routes its first token among B tokens, the miss among B x CTX)."""
     from repro_torch.configs import get_config
     from repro_torch.serve.host_store import BACKENDS
-    # float32 products in full precision, so hit and miss differ only in
-    # summation order, as on the CPU.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = dataclasses.replace(get_config(ARCH), n_layers=2, compute_dtype="float32")
-    eng = _engine(cfg, dev, seed=1)
-    prompts = np.random.default_rng(1).integers(0, cfg.vocab, (B, CTX)).astype(np.int32)
+    cfg = dataclasses.replace(get_config(arch), n_layers=2, compute_dtype="float32")
+    if cfg.moe:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+    eng = _engine(cfg, dev, seed=seed)
+    prompts = np.random.default_rng(seed).integers(0, cfg.vocab, (B, CTX)).astype(np.int32)
     keys = [f"exact-{i}" for i in range(B)]
     miss = eng.generate(prompts, keys, NEW)
     for backend in BACKENDS:
         hit = eng.generate(prompts, keys, NEW, fetch_backend=backend)
         if not np.array_equal(hit.tokens, miss.tokens):
-            raise AssertionError(f"float32 hit tokens via {backend} differ from the miss path's")
-    log(f"[exact] {cfg.name} n_layers=2 float32 (TF32 off): hit tokens == miss tokens "
+            raise AssertionError(f"{arch}: float32 hit tokens via {backend} differ from the "
+                                 "miss path's")
+    extra = f", capacity factor {cfg.moe.capacity_factor}" if cfg.moe else ""
+    log(f"[exact] {cfg.name} n_layers=2 float32 (TF32 off){extra}: hit tokens == miss tokens "
         f"for {list(BACKENDS)}")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 # --------------------------------------------------------------------- 6 ----
@@ -553,7 +600,8 @@ def phase_collectives_path(dev) -> dict:
     from repro_torch.kernels.ring_all_to_all.ref import all_to_all_ref
     n = RANKS
     ranks = coll.make_ranks(n, dev)
-    be = CommBackend("latte", axis_devices=n)
+    # the bundled tables cover 16 devices; others are derived, not stale
+    be = CommBackend("latte", axis_devices=n, allow_stale_tables=True)
     rng = np.random.default_rng(7)
     # f32 operands: a 2 MiB shard per rank (16 MiB gathered), and 8 chunks
     # of 256 KiB per rank for the all-to-all and the reductions
@@ -665,6 +713,27 @@ def phase_moe_exactness(dev) -> None:
     torch.cuda.empty_cache()
 
 
+def log_dispatch_tables() -> None:
+    """The variant ``CommBackend('latte', axis_devices=n)`` picks at 64 KiB
+    and 16 MiB for each collective, from tables the port's own simulator
+    derives (or its bundled copy of the reference's, keyed by the same
+    fingerprint): modeled TPU v5e pod tables, not H100 ones."""
+    from repro_torch.core import backend
+    from repro_torch.core.dma.topology import tpu_v5e_pod
+    rows = {}
+    for n in (4, 8, 16):
+        t0 = time.perf_counter()
+        be = backend.CommBackend("latte", axis_devices=n, allow_stale_tables=True)
+        rows[n] = {name: {size: be.choose(name, b)[0]
+                          for size, b in (("64KiB", 64 << 10), ("16MiB", 16 << 20))}
+                   for name in backend.COLLECTIVES}
+        rows[n]["source"] = ("bundled" if backend._bundled_current(
+            tpu_v5e_pod(n), tuple(backend._SWEEP_SIZES)) else "derived")
+        rows[n]["host_s"] = time.perf_counter() - t0
+    log(f"[dispatch] modeled TPU-pod tables (the port's DMA simulator, not measured): "
+        f"CommBackend('latte', axis_devices=n) picks {json.dumps(rows)}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA card",
@@ -676,14 +745,20 @@ def main() -> int:
     dev = torch.device("cuda")
     card = phase_card()
     phase_build()
-    b1 = check_gather(dev)
+    b1 = check_gather(dev, ARCH)
+    b1_moe = check_gather(dev, MOE_ARCH)
     b2 = check_decode_attention(dev)
-    launches = phase_serving(dev)
-    phase_exactness(dev)
+    launches = phase_serving(dev, ARCH, seed=0)
+    phase_exactness(dev, ARCH, seed=1)
     check_rank_kernels(dev)
     path = phase_collectives_path(dev)
     phase_moe_exactness(dev)
     launches.update(path["launches"])
+    moe_launches = phase_serving(dev, MOE_ARCH, seed=2)
+    phase_exactness(dev, MOE_ARCH, seed=3)
+    log_dispatch_tables()
+    for name, n in moe_launches.items():
+        launches[name] += n
     kernels = []
     for name, row, replaces in (
             ("paged_kv_gather", b1, "src/repro/kernels/paged_kv_gather/paged_kv_gather.py:26"),
@@ -695,12 +770,18 @@ def main() -> int:
              "src/repro/kernels/ring_all_to_all/ring_all_to_all.py:87")):
         if name != "paged_decode_attention" and launches[name] == 0:
             raise AssertionError(f"the main path never launched {name}")
-        kernels.append({"name": name, "route": "cuda", "source": SOURCES[name],
-                        "replaces": replaces, "launches": launches[name],
-                        "on_main_path": name != "paged_decode_attention",
-                        "max_abs_err": row["max_abs_err"], "ms": row["kernel_ms"],
-                        "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-                        "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+        entry = {"name": name, "route": "cuda", "source": SOURCES[name],
+                 "replaces": replaces, "launches": launches[name],
+                 "on_main_path": name != "paged_decode_attention",
+                 "max_abs_err": row["max_abs_err"], "ms": row["kernel_ms"],
+                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                 "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
+        if name == "paged_kv_gather":
+            entry["launches_by_path"] = {ARCH: launches[name] - moe_launches[name],
+                                         MOE_ARCH: moe_launches[name]}
+            entry["at_" + MOE_ARCH] = {k: b1_moe[k] for k in (
+                "kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err")}
+        kernels.append(entry)
     log(f"[done] {time.perf_counter() - t0:.1f}s on {card}")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -17,6 +17,8 @@ No weight is transposed: the port keeps the reference's ``x @ w`` layout,
 * ``attn.bq``/``bk``/``bv``  [H * hd] / [KV * hd]
 * ``mlp.wg``/``wu``     [D, F],  ``mlp.wd`` [F, D]
 * ``ln1``/``ln2``/``final_norm``  ``scale`` [D] (+ ``bias`` for layernorm)
+* ``moe.router`` [D, E], ``moe.wg``/``wu`` [E, D, F], ``moe.wd`` [E, F, D]
+  (moe family, in place of ``mlp``)
 
 MoE layer params (``moe_params_from_numpy``, the dict of ``init_moe``):
 
@@ -28,8 +30,8 @@ held as they are; ``core.latte_moe.shard_experts`` gives rank r the experts
 the reference.
 
 The only reshaping is unstacking the layer axis into the port's per-layer
-list.  Matmul weights go to the compute dtype and norm params to float32
-(``transformer.to_compute_dtype``).  This module imports neither JAX nor the
+list.  Matmul weights go to the compute dtype, norm params and the router to
+float32 (``transformer.to_compute_dtype``).  This module imports neither JAX nor the
 JAX package; the caller does the ``np.asarray``.
 """
 from __future__ import annotations
@@ -54,9 +56,10 @@ def _layer(tree, step: int, device):
 
 def params_from_numpy(cfg: ArchConfig, tree: dict, device="cuda") -> dict:
     """Reference params (nested dict of numpy arrays) -> port params on
-    ``device`` for the dense decoder family."""
-    if cfg.family != "dense":
-        raise NotImplementedError(f"weight bridge covers the dense family, got {cfg.family!r}")
+    ``device`` for the dense and MoE decoder families."""
+    if cfg.family not in ("dense", "moe"):
+        raise NotImplementedError(
+            f"weight bridge covers the dense and moe families, got {cfg.family!r}")
     dev = resolve_device(device)
     units = tree["blocks"]
     per_unit = len(units)

@@ -6,6 +6,9 @@ comparing KV-fetch backends (the paper's §5.3 workload), on the card.
 Runs the miss path (prefill + save), then a hit through each fetch backend,
 and asserts that every backend gives the miss path's tokens, as the JAX
 entry point does, on the reduced config with random weights from ``--seed``.
+Beside each hit's measured TTFT it prints ``fetch_modeled``: the modeled
+fetch latency on the reference's MI300X platform (DMA engine model), not a
+measurement.
 """
 from __future__ import annotations
 
@@ -38,8 +41,8 @@ def main() -> None:
         params = model.init(torch.Generator(device=device).manual_seed(args.seed))
         eng = ServeEngine(model, params, device=device)
     except (ValueError, NotImplementedError) as e:
-        raise SystemExit(f"{args.arch} is not servable by this port yet ({e}); "
-                         "use a dense arch, e.g. qwen2-0.5b, deepseek-7b, stablelm-12b")
+        raise SystemExit(f"{args.arch} is not servable by this port yet ({e}); use a "
+                         "dense or moe arch, e.g. qwen2-0.5b, deepseek-7b, olmoe-1b-7b")
     rng = np.random.default_rng(args.seed)
     prompts = rng.integers(0, cfg.vocab, (args.batch, args.ctx)).astype(np.int32)
     keys = [f"req-{i}" for i in range(args.batch)]
@@ -54,6 +57,7 @@ def main() -> None:
         st = res.request_stats[0]
         same = (res.tokens == res_miss.tokens).all()
         print(f"[hit/{backend:7s}] ttft_wall={st.ttft_wall_s * 1e3:.3f}ms "
+              f"fetch_modeled(MI300X model)={st.fetch_modeled_s * 1e6:.1f}us "
               f"transfers={st.n_transfers} tok/s={res.tokens_per_s_wall:.1f} "
               f"tokens_match={same}")
         assert same, f"{backend} produced different tokens"

@@ -252,17 +252,67 @@ def _entries(tables):
     return [[(e.lo, e.hi, e.variant, e.chunk) for e in t] for t in tables]
 
 
-@pytest.mark.parametrize("n", [8, 16])
-def test_dispatch_tables_equal_the_reference(n):
-    assert _entries(backend.tpu_dispatch_tables(n)) == \
-        _entries(jax_backend.tpu_dispatch_tables(n))
+@pytest.fixture
+def fresh_tables(tmp_path, monkeypatch):
+    """The port's tables with no memo and an empty disk cache, so each
+    call derives them with the port's own simulator (or hits the bundled
+    copy)."""
+    monkeypatch.setattr(backend, "_TABLE_CACHE_DIR", str(tmp_path))
+    backend.tpu_dispatch_tables.cache_clear()
+    yield tmp_path
+    backend.tpu_dispatch_tables.cache_clear()
 
 
-def test_dispatch_tables_refuse_other_device_counts():
-    with pytest.raises(ValueError, match="no dispatch tables for 4 devices"):
-        backend.tpu_dispatch_tables(4)
-    with pytest.raises(ValueError):
-        backend.CommBackend("latte", axis_devices=32).choose("all_gather", 1 << 20)
+@pytest.mark.parametrize("n", [4, 8, 16])
+def test_dispatch_tables_equal_the_reference(n, fresh_tables):
+    """Derived by the port's simulator for n = 4 and 8 (the bundled copy
+    holds 16 only), and bundled for 16, equal to the reference's."""
+    from repro_torch.core.dma.topology import tpu_v5e_pod
+    got = backend.tpu_dispatch_tables(n)
+    assert _entries(got) == _entries(jax_backend.tpu_dispatch_tables(n))
+    derived = list(fresh_tables.iterdir())
+    assert len(derived) == (0 if n == 16 else 1)
+    assert backend._bundled_current(tpu_v5e_pod(n), tuple(backend._SWEEP_SIZES)) == (n == 16)
+
+
+def test_bundled_tables_hit_for_16_without_warning(fresh_tables):
+    """The port's fingerprint of tpu_v5e_pod(16) is the reference's, so the
+    bundled copy serves it and no StaleTablesWarning is raised; a count the
+    bundled copy lacks warns unless acknowledged."""
+    import warnings
+    from repro.core.dma.topology import tpu_v5e_pod as jax_pod
+    from repro_torch.core.dma.topology import tpu_v5e_pod
+    assert backend._table_key(tpu_v5e_pod(16), backend._SWEEP_SIZES) == \
+        jax_backend._table_key(jax_pod(16), jax_backend._SWEEP_SIZES)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        assert backend.CommBackend("latte", axis_devices=16).choose(
+            "all_gather", 1 << 20)[0] == "pipe_bidir_ring"
+        backend.CommBackend("latte", axis_devices=4, allow_stale_tables=True).choose(
+            "all_to_all", 1 << 16)
+    with pytest.warns(backend.StaleTablesWarning):
+        backend.CommBackend("latte", axis_devices=4).choose("all_to_all", 1 << 16)
+    assert list(fresh_tables.iterdir())          # 4 was derived and cached
+
+
+def test_dispatch_tables_refuse_other_device_counts(fresh_tables):
+    """No device count is refused any more: 6, which the old bundled JSON of
+    8 and 16 lacked, gives the reference's tables, as its tpu_v5e_pod(n)
+    accepts any n."""
+    assert _entries(backend.tpu_dispatch_tables(6)) == \
+        _entries(jax_backend.tpu_dispatch_tables(6))
+    be = backend.CommBackend("latte", axis_devices=6, allow_stale_tables=True)
+    ref_be = jax_backend.CommBackend("latte", axis_devices=6, allow_stale_tables=True)
+    for collective in backend.COLLECTIVES:
+        table = jax_backend.tpu_dispatch_tables(6)[backend.COLLECTIVES.index(collective)]
+        assert be.choose(collective, 1 << 20)[0] == ref_be._strip(jax_backend._pick(table, 1 << 20))
+
+
+def test_multinode_tables_equal_the_reference():
+    """The bundled hierarchical tables, looked up by the port's fingerprint."""
+    for spec in backend.MULTINODE_TOPOS:
+        assert _entries(backend.multinode_dispatch_tables(spec)) == \
+            _entries(jax_backend.multinode_dispatch_tables(spec))
 
 
 SIZES = sorted({2 ** i for i in range(0, 33)} | {3 * 2 ** i for i in range(8, 30, 3)}
@@ -280,7 +330,7 @@ def test_backend_picks_the_reference_variant(n, collective):
                 "all_to_all": (jax_backend._AA_IMPL, "reference_all_to_all"),
                 "reduce_scatter": (jax_backend._RS_IMPL, "reference_reduce_scatter"),
                 "all_reduce": (jax_backend._AR_IMPL, "reference_all_reduce")}[collective]
-    be = backend.CommBackend("latte", axis_devices=n)
+    be = backend.CommBackend("latte", axis_devices=n, allow_stale_tables=True)
     for size in SIZES:
         want = ref_be._strip(jax_backend._pick(table, size))
         got, fn = be.choose(collective, size)
@@ -304,7 +354,7 @@ def test_backend_message_bytes_follow_the_reference():
 @pytest.mark.parametrize("collective", backend.COLLECTIVES)
 def test_backend_collectives_match_shard_map(ref, dtype, collective, no_launches):
     ranks = coll.make_ranks(N, "cpu")
-    be = backend.CommBackend("latte", axis_devices=N)
+    be = backend.CommBackend("latte", axis_devices=N, allow_stale_tables=True)
     key = "coll_ag_in" if collective == "all_gather" else "coll_aa_in"
     got = getattr(be, collective)(_t(ref[f"{key}_{dtype}"], dtype), ranks)
     want = ref[f"backend_{collective}_{dtype}"]

@@ -119,6 +119,57 @@ def test_engine_hit_equals_miss_float32(cuda, monkeypatch):
         np.testing.assert_array_equal(hit.tokens, miss.tokens)
 
 
+def test_moe_forward_on_card_matches_cpu(cuda, monkeypatch):
+    """Reduced olmoe in float32 (TF32 off), the same params and tokens on
+    the card and on the CPU: forward logits and decode-step logits at 1e-4,
+    the aux loss at 1e-6."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = dataclasses.replace(get_config("olmoe-1b-7b").reduced(), compute_dtype="float32")
+    model = build_model(cfg)
+    cpu_params = model.init(torch.Generator().manual_seed(3))
+
+    def to_card(tree):
+        if isinstance(tree, dict):
+            return {k: to_card(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to_card(v) for v in tree]
+        return tree.to(cuda)
+
+    card_params = to_card(cpu_params)
+    toks = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab, (2, 24)))
+    want, want_aux, _ = model.forward(cpu_params, {"tokens": toks})
+    got, aux, _ = model.forward(card_params, {"tokens": toks.to(cuda)})
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(aux.cpu(), want_aux, atol=1e-6, rtol=0)
+    caches = {"cpu": model.init_caches(2, 8, "cpu"), "cuda": model.init_caches(2, 8, cuda)}
+    for t in range(6):
+        want, caches["cpu"] = model.decode_step(cpu_params, {"tokens": toks[:, t:t + 1],
+                                                             "pos": t}, caches["cpu"])
+        got, caches["cuda"] = model.decode_step(card_params, {"tokens": toks[:, t:t + 1].to(cuda),
+                                                              "pos": t}, caches["cuda"])
+        torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+
+
+def test_moe_engine_on_card_hit_tokens_agree(cuda):
+    """Reduced olmoe in bf16 at the default capacity factor: every hit
+    backend gives the same tokens, the kernel backend launches B1 twice per
+    context, and each hit carries a positive modeled fetch latency."""
+    cfg = get_config("olmoe-1b-7b").reduced()
+    model = build_model(cfg)
+    eng = ServeEngine(model, model.init(torch.Generator(device=cuda).manual_seed(4)))
+    prompts = np.random.default_rng(4).integers(0, cfg.vocab, (3, 40)).astype(np.int32)
+    keys = ["m0", "m1", "m2"]
+    miss = eng.generate(prompts, keys, 6)
+    assert not miss.request_stats[0].cache_hit and miss.request_stats[0].fetch_modeled_s == 0
+    hits = {}
+    for backend in BACKENDS:
+        before = gather_ops.launches
+        hits[backend] = eng.generate(prompts, keys, 6, fetch_backend=backend)
+        assert gather_ops.launches - before == (6 if backend == "kernel" else 0)
+        assert hits[backend].request_stats[0].fetch_modeled_s > 0
+        np.testing.assert_array_equal(hits[backend].tokens, hits["pcpy"].tokens)
+
+
 # Shapes: 16-byte words at one and several CTAs per rank, a forced split of a
 # small chunk over 3 CTAs, and chunks of 12/6 and 60/30 bytes (f32/bf16: 4-
 # and 2-byte words); n = 1 has no ring step.

@@ -34,7 +34,9 @@ def test_port_imports_no_jax_and_no_reference():
     assert "repro_torch.kernels.decode_attention.ops" in out["imported"]
     for name in ("kernels.ring_all_gather.ops", "kernels.ring_all_to_all.ops",
                  "core.collectives", "core.backend", "core.latte_moe", "models.moe",
-                 "launch.collectives"):
+                 "launch.collectives", "core.dma", "core.dma.claims", "core.dma.sim",
+                 "core.dma.dispatch", "core.serving_model", "serve.workload",
+                 "models.transformer"):
         assert f"repro_torch.{name}" in out["imported"]
     loaded = out["loaded"]
     assert not [m for m in loaded if m == "jax" or m.startswith(("jax.", "jaxlib"))]

@@ -1,4 +1,4 @@
-"""The port's dense model against the JAX reference on bridged weights.
+"""The port's dense and MoE models against the JAX reference on bridged weights.
 
 The reference's params (``model.init``) go through ``jax.tree.map(np.asarray)``
 and ``repro_torch.bridge.params_from_numpy``; inputs are made with numpy from
@@ -6,7 +6,10 @@ a seed.  Parity is checked in float32 (``compute_dtype="float32"`` in both
 packages), where the two differ only in summation order: tolerance 1e-4 on
 logits of magnitude ~1 (measured differences are ~2e-6).  A bf16 check
 follows at atol 0.05, about six bf16 steps at that magnitude, since the two
-frameworks round intermediate results at different places.
+frameworks round intermediate results at different places.  The MoE
+configs' reduced widths (4 experts, top-2, capacity factor 1.25) drop
+tokens, so the parity checks cover the drop rule too; the aux loss is
+checked at 1e-6.
 """
 import dataclasses
 
@@ -27,9 +30,13 @@ from repro_torch.configs import ARCH_IDS, get_config  # noqa: E402
 from repro_torch.models import attention as attn  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models import layers  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
 
 DENSE = ("qwen2-0.5b", "gemma2-27b", "deepseek-7b", "stablelm-12b")
+MOE = ("olmoe-1b-7b", "mixtral-8x7b")
+DECODERS = DENSE + MOE
 F32_TOL = 1e-4
+AUX_TOL = 1e-6
 BF16_ATOL = 5e-2
 
 
@@ -159,14 +166,18 @@ def test_prefill_cache(S, capacity):
 
 
 # ---------------------------------------------------------- whole model ----
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DECODERS)
 def test_forward_logits_match_reference(arch):
     jm, jp, tm, tp = _models(arch)
     toks = np.random.default_rng(6).integers(0, jm.cfg.vocab, (2, 24)).astype(np.int32)
-    jl, _, jkvs = jm.forward(jp, {"tokens": jnp.asarray(toks)}, remat=False, want_cache=True)
-    tl, _, (tk, tv) = tm.forward(tp, {"tokens": torch.from_numpy(toks)}, want_cache=True)
+    jl, jaux, jkvs = jm.forward(jp, {"tokens": jnp.asarray(toks)}, remat=False,
+                                want_cache=True)
+    tl, taux, (tk, tv) = tm.forward(tp, {"tokens": torch.from_numpy(toks)}, want_cache=True)
     assert tl.shape == (2, 24, tm.cfg.vocab) and tl.dtype == torch.float32
     _close(tl, jl)
+    assert taux.dtype == torch.float32 and taux.dim() == 0
+    _close(taux, jaux, AUX_TOL)
+    assert (float(taux) > 0) == (arch in MOE)
     # reference: tuple(per_unit) of (k, v) [trip, ...]; layer u*per_unit+i is jkvs[i][.][u]
     pu, n_layers = len(jkvs), tm.cfg.n_layers
     assert tk.shape == (n_layers, 2, 24, tm.cfg.n_kv_heads, tm.cfg.head_dim)
@@ -174,7 +185,7 @@ def test_forward_logits_match_reference(arch):
         _close(got, np.stack([_np(jkvs[i % pu][j][i // pu]) for i in range(n_layers)]))
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DECODERS)
 def test_decode_step_logits_match_reference(arch):
     """Token-by-token decode from empty caches, against the reference's."""
     jm, jp, tm, tp = _models(arch)
@@ -190,11 +201,17 @@ def test_decode_step_logits_match_reference(arch):
         _close(tl, jl)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DECODERS)
 def test_decode_matches_forward_within_port(arch):
     """Teacher forcing: decoding from empty caches reproduces the full
-    forward's logits at every position (float32, summation order only)."""
-    _, _, tm, tp = _models(arch)
+    forward's logits at every position (float32, summation order only).
+    MoE configs run at capacity factor n_experts / top_k, where no choice
+    is dropped: the forward routes 12 tokens at once, a decode step one."""
+    changes = {}
+    if arch in MOE:
+        m = get_config(arch).reduced().moe
+        changes["moe"] = dataclasses.replace(m, capacity_factor=m.n_experts / m.top_k)
+    _, _, tm, tp = _models(arch, **changes)
     B, S = 1, 12
     toks = torch.from_numpy(np.random.default_rng(8).integers(0, tm.cfg.vocab, (B, S)))
     full, _, _ = tm.forward(tp, {"tokens": toks})
@@ -214,6 +231,56 @@ def test_forward_logits_bf16(arch):
     np.testing.assert_allclose(_np(tl), _np(jl), atol=BF16_ATOL, rtol=0)
 
 
+# A routing margin (K-th minus (K+1)-th router probability) below which
+# bf16 rounding of the hidden state may pick other experts.
+NEAR_TIE = 1e-2
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_moe_forward_logits_bf16(arch, monkeypatch):
+    """bf16 forward at atol 5e-2, with the routing of both frameworks
+    recorded.  Routing is discontinuous: a token whose K-th and (K+1)-th
+    router probabilities are nearly tied may go to other experts when the
+    two frameworks round its hidden state differently, which changes its
+    output by O(1) and, through attention, the later positions of its
+    sequence.  So: every token routed differently must be a near tie
+    (margin < NEAR_TIE), and every sequence routed identically at every
+    layer must agree at 5e-2."""
+    K = get_config(arch).reduced().moe.top_k
+    port_routes, ref_routes = [], []
+    route = moe_mod.route
+
+    def recording_route(cfg, router, xf):
+        probs = torch.softmax(xf.float() @ router.float(), -1).numpy()
+        port_routes.append(probs)
+        return route(cfg, router, xf)
+
+    top_k = jax.lax.top_k
+
+    def recording_top_k(x, k):
+        ref_routes.append(np.asarray(x))
+        return top_k(x, k)
+
+    monkeypatch.setattr(moe_mod, "route", recording_route)
+    monkeypatch.setattr(jax.lax, "top_k", recording_top_k)
+    jm, jp, tm, tp = _models(arch, dtype="bfloat16")
+    B, S = 2, 24
+    toks = np.random.default_rng(9).integers(0, jm.cfg.vocab, (B, S)).astype(np.int32)
+    jl, _, _ = jm.forward(jp, {"tokens": jnp.asarray(toks)}, remat=False, unroll=True)
+    tl, _, _ = tm.forward(tp, {"tokens": torch.from_numpy(toks)})
+    assert tl.dtype == torch.bfloat16
+    assert len(port_routes) == len(ref_routes) == tm.cfg.n_layers
+    same_seq = np.ones(B, bool)
+    for pp, rp in zip(port_routes, ref_routes):
+        pick = lambda p: np.sort(np.argsort(-p, -1, kind="stable")[:, :K], -1)  # noqa: E731
+        differ = (pick(pp) != pick(rp)).any(-1)
+        srt = np.sort(rp, -1)
+        assert (srt[differ, -K] - srt[differ, -K - 1] < NEAR_TIE).all()
+        same_seq &= ~differ.reshape(B, S).any(-1)
+    assert same_seq.any(), same_seq
+    np.testing.assert_allclose(_np(tl)[same_seq], _np(jl)[same_seq], atol=BF16_ATOL, rtol=0)
+
+
 def test_init_is_seeded_and_typed():
     cfg = get_config("qwen2-0.5b").reduced()
     m = build_model(cfg)
@@ -226,7 +293,37 @@ def test_init_is_seeded_and_typed():
     assert torch.equal(a["blocks"][1]["mlp"]["wd"], b["blocks"][1]["mlp"]["wd"])
 
 
-@pytest.mark.parametrize("arch", [a for a in ARCH_IDS if get_config(a).family != "dense"])
+@pytest.mark.parametrize("arch", MOE)
+def test_moe_router_stays_float32(arch):
+    """Init and the bridge keep the router in float32 (the reference routes
+    in float32 from its float32 params); the experts take the compute dtype."""
+    cfg = get_config(arch).reduced()
+    m = build_model(cfg)
+    a = m.init(torch.Generator().manual_seed(0))
+    b = m.init(torch.Generator().manual_seed(0))
+    moe = a["blocks"][0]["moe"]
+    assert "mlp" not in a["blocks"][0]
+    assert moe["router"].dtype == torch.float32
+    assert moe["router"].shape == (cfg.d_model, cfg.moe.n_experts)
+    assert moe["wg"].dtype == moe["wd"].dtype == torch.bfloat16
+    assert moe["wd"].shape == (cfg.moe.n_experts, cfg.moe.d_ff_expert, cfg.d_model)
+    assert torch.equal(a["blocks"][1]["moe"]["wu"], b["blocks"][1]["moe"]["wu"])
+    _, jp, _, tp = _models(arch, dtype="bfloat16")
+    assert tp["blocks"][1]["moe"]["router"].dtype == torch.float32
+    np.testing.assert_array_equal(tp["blocks"][1]["moe"]["router"].numpy(),
+                                  np.asarray(jp["blocks"][0]["moe"]["router"][1]))
+    assert tp["blocks"][1]["moe"]["wg"].dtype == torch.bfloat16
+
+
+def test_full_moe_configs_build():
+    for arch in MOE:
+        cfg = get_config(arch)
+        model = build_model(cfg)
+        assert model.cfg.family == "moe" and model.cfg.moe.n_experts in (8, 64)
+
+
+@pytest.mark.parametrize("arch", [a for a in ARCH_IDS
+                                  if get_config(a).family not in ("dense", "moe")])
 def test_later_families_not_ported_yet(arch):
     with pytest.raises(NotImplementedError, match="slice"):
         build_model(get_config(arch).reduced())

@@ -2,7 +2,12 @@
 store fetch backends, fetch plan and the engine's greedy tokens.
 
 Engine parity runs in float32 on bridged weights, where the two packages
-differ only in summation order, and requires equal tokens.
+differ only in summation order, and requires equal tokens and the
+reference's modeled fetch latency bit for bit.  The MoE engines run at the
+default capacity factor: a hit routes the first token in a decode step (B
+tokens) where the miss routed it in prefill (B x S tokens), so hit and miss
+tokens may differ from each other, but each path must give the reference's
+tokens.
 """
 import dataclasses
 
@@ -153,8 +158,38 @@ def test_engine_tokens_match_reference(served, backend):
     st = tres.request_stats[0]
     assert st.cache_hit == (backend is not None) and st.prompt_tokens == 40
     assert st.n_transfers == jres.request_stats[0].n_transfers
+    assert st.fetch_modeled_s == jres.request_stats[0].fetch_modeled_s
+    assert (st.fetch_modeled_s > 0) == (backend is not None)
     if backend is not None:
         np.testing.assert_array_equal(tres.tokens, served[None][1].tokens)
+
+
+@pytest.fixture(scope="module", params=["olmoe-1b-7b", "mixtral-8x7b"])
+def moe_served(request):
+    """The MoE engines of both packages on the same float32 weights, at the
+    default capacity factor: the miss path, then a hit per backend."""
+    arch = request.param
+    jcfg = dataclasses.replace(jax_get_config(arch).reduced(), compute_dtype="float32")
+    tcfg = dataclasses.replace(get_config(arch).reduced(), compute_dtype="float32")
+    jm = jax_build_model(jcfg)
+    jp = jm.init(jax.random.PRNGKey(2))
+    tp = params_from_numpy(tcfg, jax.tree.map(np.asarray, jp), device="cpu")
+    jeng, teng = JaxServeEngine(jm, jp), ServeEngine(build_model(tcfg), tp, device="cpu")
+    prompts = np.random.default_rng(4).integers(0, tcfg.vocab, (3, 40)).astype(np.int32)
+    keys = ["m0", "m1", "m2"]
+    return {b: (jeng.generate(prompts, keys, 5, fetch_backend=b),
+                teng.generate(prompts, keys, 5, fetch_backend=b)) for b in (None,) + BACKENDS}
+
+
+@pytest.mark.parametrize("backend", (None,) + BACKENDS)
+def test_moe_engine_tokens_match_reference(moe_served, backend):
+    """None is the miss path (prefill routes all 3 x 40 tokens at once)."""
+    jres, tres = moe_served[backend]
+    assert tres.tokens.shape == (3, 5)
+    np.testing.assert_array_equal(tres.tokens, jres.tokens)
+    for st, jst in zip(tres.request_stats, jres.request_stats):
+        assert st.cache_hit == jst.cache_hit == (backend is not None)
+        assert (st.n_transfers, st.fetch_modeled_s) == (jst.n_transfers, jst.fetch_modeled_s)
 
 
 def test_engine_default_backend_follows_plan(engines, served):
@@ -188,3 +223,21 @@ def test_engine_defaults_to_cuda(monkeypatch):
         ServeEngine(build_model(cfg), None)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         HostKVStore()
+
+
+def test_moe_hit_tokens_equal_miss_tokens_without_drops():
+    """At capacity factor n_experts / top_k no choice is dropped, so a hit
+    (first token routed in a decode step) gives the miss path's tokens on
+    every backend, in float32."""
+    base = get_config("olmoe-1b-7b").reduced()
+    moe = dataclasses.replace(base.moe, capacity_factor=base.moe.n_experts / base.moe.top_k)
+    cfg = dataclasses.replace(base, compute_dtype="float32", moe=moe)
+    model = build_model(cfg)
+    eng = ServeEngine(model, model.init(torch.Generator().manual_seed(5)), device="cpu")
+    prompts = np.random.default_rng(6).integers(0, cfg.vocab, (2, 33)).astype(np.int32)
+    miss = eng.generate(prompts, ["x", "y"], 6)
+    assert not miss.request_stats[0].cache_hit
+    for backend in BACKENDS:
+        hit = eng.generate(prompts, ["x", "y"], 6, fetch_backend=backend)
+        assert hit.request_stats[0].cache_hit
+        np.testing.assert_array_equal(hit.tokens, miss.tokens, err_msg=backend)
