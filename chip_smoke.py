@@ -47,9 +47,34 @@ Phases, in order; each raises on failure and nothing is caught:
    tokens, the miss among 4 x 1024).
 9. The variants ``CommBackend('latte', axis_devices=n)`` picks for n = 4, 8
    and 16, from modeled TPU-pod tables of the port's own DMA simulator.
-10. One JSON line naming every ported kernel with its launches on its path
-    (phases 4 and 8 for B1/B2, phase 7 for B3/B4).
-11. Last line: ``{"ok": true, "device": {...}}``.
+10. Training qwen2-0.5b at full width through ``train.loop.train_loop``
+    (bf16 compute on float32 masters, AdamW lr 1e-3, warm-up 5, 30 steps
+    of 4 x 1024 tokens from the port's data pipeline, weights from a seed):
+    every loss and grad norm finite, the last loss below the first by more
+    than 0.5 (the reference's ``test_training_reduces_loss``).  Logged: the
+    step's call ms (median after warm-up), card busy ms and launches per
+    step from ``profile_step``, tokens/s, peak memory and the step's
+    compute bound 8·N·T (6·N·T plus the recomputed forward's 2·N·T).
+11. Training exactness: qwen2-0.5b's widths at 2 layers in float32 (TF32
+    off), one ``make_train_step(cast_params=False)`` step on the card
+    against the same step on the CPU from the same state, 2 x 256 tokens:
+    loss and grad norm within 1e-5 relative, Adam moments within 1e-4 of
+    each leaf's largest element, params within 2 x lr everywhere and
+    within 1e-6 for all but 1e-3 of the elements (Adam's first step is
+    about lr * sign(g), so where |g| is near eps the two devices' rounding
+    moves an element by up to 2 x lr).  Then the train state goes through
+    ``save_checkpoint`` / ``restore_checkpoint`` (the reference's .npz
+    layout, in a temporary directory removed afterwards) bit-equal, and one
+    more step from the restored state equals the step from the state in
+    memory under the same comparison.
+12. Training the MoE family at olmoe-1b-7b's widths cut to 2 of 16 layers
+    (float32 masters, m and v of all 16 layers would not fit the card): 10
+    steps as phase 10's, every loss and router aux loss finite, aux > 0,
+    with phase 10's log lines.
+13. One JSON line naming every ported kernel with its launches on its path
+    (phases 4 and 8 for B1/B2, phase 7 for B3/B4; no kernel lies on the
+    training path).
+14. Last line: ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without printing a result when no CUDA device is present.
 """
@@ -63,6 +88,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -84,6 +110,8 @@ ROW = 1024                                   # elements per row of a rank's chun
 GATHERED = {"64KiB": 64 << 10, "1MiB": 1 << 20, "16MiB": 16 << 20, "256MiB": 256 << 20}
 L2_BYTES = 50e6                              # H100 L2 cache
 MOE_ARCH, MOE_TOKENS = "olmoe-1b-7b", 512    # latte MoE: tokens per rank
+TRAIN_B, TRAIN_S = 4, 1024                   # training: batch x sequence (4,096 tokens)
+EXACT_B, EXACT_S = 2, 256                    # the float32 card-vs-CPU step
 
 
 def log(msg: str) -> None:
@@ -124,10 +152,24 @@ def call_ms(fn, reps: int = 50, warmup: int = 5) -> float:
     return _events(fn, reps, warmup, sleep_cycles=0)
 
 
+# Kernel name fragments -> the kind of work, for the busy-time breakdown.
+KINDS = (("matmul", ("gemm", "nvjet", "cutlass", "xmma", "cublas")),
+         ("optimizer foreach", ("multi_tensor_apply",)),
+         ("indexing", ("index", "scatter", "gather")),
+         ("reduce/softmax", ("reduce", "softmax", "norm")),
+         ("copy/cast/fill", ("Memcpy", "Memset", "copy", "fill")),
+         ("elementwise", ("elementwise",)))
+
+
+def _kind(name: str) -> str:
+    low = name.lower()
+    return next((kind for kind, keys in KINDS if any(k.lower() in low for k in keys)), "other")
+
+
 def profile_step(fn, reps: int = 3) -> dict:
     """Kernel (and copy) time per call of ``fn`` from ``torch.profiler``, with
-    the five largest entries; ``busy_ms`` is None when the profiler records
-    no device activity."""
+    the five largest entries and the sums by kind of work; ``busy_ms`` is
+    None when the profiler records no device activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -142,10 +184,14 @@ def profile_step(fn, reps: int = 3) -> dict:
             by_name[ev.name] = by_name.get(ev.name, 0.0) + ev.time_range.elapsed_us() / 1e3 / reps
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    by_kind: dict[str, float] = {}
+    for name, ms in by_name.items():
+        by_kind[_kind(name)] = by_kind.get(_kind(name), 0.0) + ms
     return {"busy_ms": busy if by_name else None,
             "device_launches": sum(1 for ev in prof.events()
                                    if ev.device_type == DeviceType.CUDA) // reps,
-            "top_ms": [[name[:60], ms] for name, ms in top]}
+            "top_ms": [[name[:60], ms] for name, ms in top],
+            "busy_ms_by_kind": by_kind}
 
 
 def bound_ms(n_bytes: float, n_ops: float, dtype) -> tuple[float, str]:
@@ -734,6 +780,198 @@ def log_dispatch_tables() -> None:
         f"CommBackend('latte', axis_devices=n) picks {json.dumps(rows)}")
 
 
+# ---------------------------------------------------------------- 10-12 ----
+def _leaves(tree):
+    from repro_torch.train.tree import tree_leaves
+    return tree_leaves(tree)
+
+
+def _matmul_params(cfg, params) -> float:
+    """N of 6·N·T: the weights a token's matmuls use, i.e. every block
+    leaf, with an MoE block's experts counted at top_k / n_experts, plus the
+    unembedding product (vocab x d_model, tied or not)."""
+    n = float(sum(t.numel() for t in _leaves(params["blocks"])))
+    if cfg.moe:
+        experts = sum(b["moe"][k].numel() for b in params["blocks"] for k in ("wg", "wu", "wd"))
+        n -= experts * (1 - cfg.moe.top_k / cfg.moe.n_experts)
+    return n + cfg.vocab * cfg.d_model
+
+
+def phase_train(dev, cfg, steps: int, seed: int, card: str) -> dict:
+    """Train ``cfg`` through ``train_loop`` (bf16 compute on float32
+    masters); the router aux loss of every step is recorded by wrapping the
+    model's forward.  Checks finiteness; returns the history and times."""
+    from repro_torch.data.pipeline import DataConfig, data_iterator, synth_batch
+    from repro_torch.models import build_model
+    from repro_torch.train.loop import cast_params_for_compute, make_train_step, train_loop
+    from repro_torch.train.optimizer import AdamWConfig, adamw_update
+    model = build_model(cfg)
+    auxes = []
+    forward = model.forward
+
+    def recording_forward(params, batch, **kw):
+        out = forward(params, batch, **kw)
+        auxes.append(out[1].detach())
+        return out
+
+    model = dataclasses.replace(model, forward=recording_forward)
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=5, total_steps=steps)
+    dc = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_S, batch=TRAIN_B, seed=seed)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, hist = train_loop(model, data_iterator(dc), steps=steps, opt_cfg=opt_cfg,
+                             gen=torch.Generator(device=dev).manual_seed(seed), log_every=1,
+                             device=dev)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    losses = [h["loss"] for h in hist]
+    gnorms = [h["grad_norm"] for h in hist]
+    aux = [a.item() for a in auxes]
+    if len(hist) != steps or len(aux) != steps:
+        raise AssertionError(f"{cfg.name}: {len(hist)} history entries, {len(aux)} forwards "
+                             f"for {steps} steps")
+    if not all(math.isfinite(x) for x in losses + gnorms + aux):
+        raise AssertionError(f"{cfg.name}: a non-finite loss, grad norm or aux loss: "
+                             f"{losses} {gnorms} {aux}")
+
+    # The step's time: the loop's per-step wall clock (each step ends in a
+    # host read of its metrics), median after two warm-up steps; busy time
+    # and launches from the profiler over two more steps from the trained
+    # state (outside the loop, so the launches count one whole step).
+    walls = [hist[0]["wall_s"]] + [b["wall_s"] - a["wall_s"] for a, b in zip(hist, hist[1:])]
+    step_ms = statistics.median(walls[2:]) * 1e3
+    step_fn = make_train_step(model, opt_cfg)
+    batch = {k: v.to(dev) for k, v in synth_batch(dc, steps).items()}
+    prof = profile_step(lambda: step_fn(state, batch), reps=2)
+    # the step's parts: the forward and loss alone, and AdamW alone (the
+    # moments stand in for gradients: the same ops on the same shapes);
+    # recomputation and backward are the rest
+    with torch.no_grad():
+        fwd = profile_step(lambda: model.loss(cast_params_for_compute(state["params"]), batch,
+                                              remat=False), reps=2)
+    adamw = profile_step(lambda: adamw_update(opt_cfg, state["params"], state["opt"]["m"],
+                                              state["opt"]), reps=2)
+    parts = {name: {"busy_ms": p["busy_ms"], "device_launches": p["device_launches"]}
+             for name, p in (("forward_and_loss", fwd), ("adamw", adamw))}
+    parts["recompute_and_backward"] = {
+        k: prof[k] - fwd[k] - adamw[k] for k in ("busy_ms", "device_launches")}
+    tokens = TRAIN_B * TRAIN_S
+    n_mm = _matmul_params(cfg, state["params"])
+    bound = 8 * n_mm * tokens / PEAK_FLOPS[torch.bfloat16] * 1e3
+    out = {"arch": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "vocab": cfg.vocab, "params": sum(t.numel() for t in _leaves(state["params"])),
+           "batch": TRAIN_B, "seq": TRAIN_S, "steps": steps, "lr": opt_cfg.lr,
+           "loss": losses, "grad_norm": gnorms, "aux": aux,
+           "step_call_ms_median": step_ms, "step_ms_samples": [w * 1e3 for w in walls],
+           "busy_ms": prof["busy_ms"],
+           "busy_share": prof["busy_ms"] / step_ms if prof["busy_ms"] else None,
+           "device_launches_per_step": prof["device_launches"], "top_ms": prof["top_ms"],
+           "busy_ms_by_kind": prof["busy_ms_by_kind"], "parts": parts,
+           "tokens_per_s": tokens / (step_ms / 1e3),
+           "max_memory_allocated_bytes": peak, "loop_wall_s": wall,
+           "matmul_params_N": n_mm, "compute_bound_ms_8NT_bf16": bound,
+           "bound_share": bound / step_ms, "card": card}
+    log(f"[train] {json.dumps(out)}")
+    del state, step_fn, batch, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _compare_steps(name, got, want, lr: float) -> dict:
+    """Two (state, metrics) results of one train step: loss and grad norm
+    within 1e-5 relative; m and v within 1e-4 of each leaf's largest
+    element (the gradients' tolerance); params within 2 x lr everywhere (Adam's first steps move an
+    element by about lr * sign(g), and where |g| is near eps the two sides'
+    rounding may move it differently) and within 1e-6 for all but 1e-3 of
+    the elements.  Returns the differences."""
+    (gs, gm), (ws, wm) = got, want
+    res = {}
+    for k in ("loss", "grad_norm"):
+        g, w = gm[k].item(), wm[k].item()
+        res[f"{k}_rel_err"] = abs(g - w) / abs(w)
+        if not res[f"{k}_rel_err"] <= 1e-5:
+            raise AssertionError(f"{name}: {k} {g} vs {w}")
+    moment_err = 0.0
+    for k in ("m", "v"):
+        for g, w in zip(_leaves(gs["opt"][k]), _leaves(ws["opt"][k])):
+            w = w.to(g.device)
+            err = ((g - w).abs().max() / w.abs().max().clamp_min(1e-30)).item()
+            moment_err = max(moment_err, err)
+    res["moments_err_of_leaf_max"] = moment_err
+    if not moment_err <= 1e-4:
+        raise AssertionError(f"{name}: Adam moments differ by {moment_err} of a leaf's max")
+    max_err, off, total = 0.0, 0, 0
+    for g, w in zip(_leaves(gs["params"]), _leaves(ws["params"])):
+        err = (g - w.to(g.device)).abs()
+        max_err = max(max_err, err.max().item())
+        off += int((err > 1e-6).sum().item())
+        total += err.numel()
+    res.update(param_max_abs_err=max_err, param_max_err_over_lr=max_err / lr,
+               params_off_by_more_than_1e_6=off, params=total,
+               bit_equal=all(torch.equal(g, w.to(g.device)) for g, w in
+                             zip(_leaves(gs), _leaves(ws))))
+    if not (max_err <= 2 * lr and off <= 1e-3 * total):
+        raise AssertionError(f"{name}: params differ: {res}")
+    return res
+
+
+def phase_train_exactness(dev, seed: int) -> dict:
+    from repro_torch.bridge import train_state_from_numpy, train_state_to_numpy
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, synth_batch
+    from repro_torch.models import build_model
+    from repro_torch.train.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.train.loop import init_train_state, make_train_step
+    from repro_torch.train.optimizer import AdamWConfig, lr_at
+    from repro_torch.train.tree import tree_map
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(ARCH), n_layers=2, compute_dtype="float32")
+    model = build_model(cfg)
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=5, total_steps=30)
+    step = make_train_step(model, opt_cfg, cast_params=False)
+    dc = DataConfig(vocab=cfg.vocab, seq_len=EXACT_S, batch=EXACT_B, seed=seed)
+    batches = [synth_batch(dc, i) for i in range(2)]
+    cpu_state = init_train_state(model, torch.Generator().manual_seed(seed))
+    state = tree_map(lambda t: t.to(dev), cpu_state)
+    t0 = time.perf_counter()
+    want = step(cpu_state, batches[0])
+    cpu_s = time.perf_counter() - t0
+    got = step(state, {k: v.to(dev) for k, v in batches[0].items()})
+    torch.cuda.synchronize()
+    out = {"arch": cfg.name, "n_layers": 2, "batch": EXACT_B, "seq": EXACT_S,
+           "cpu_step_s": cpu_s,
+           "card_vs_cpu": _compare_steps("card vs CPU step", got, want,
+                                         lr_at(opt_cfg, 1).item())}
+    del cpu_state, want
+    gc.collect()
+
+    state1 = got[0]
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "state.npz")
+        tree = train_state_to_numpy(cfg, state1)
+        t0 = time.perf_counter()
+        save_checkpoint(path, tree, step=1)
+        out["checkpoint_save_s"] = time.perf_counter() - t0
+        out["checkpoint_bytes"] = os.path.getsize(path)
+        t0 = time.perf_counter()
+        restored = train_state_from_numpy(cfg, restore_checkpoint(path, tree), device=dev)
+        out["checkpoint_restore_s"] = time.perf_counter() - t0
+    if not all(a.dtype == b.dtype and torch.equal(a, b)
+               for a, b in zip(_leaves(restored), _leaves(state1))):
+        raise AssertionError("the restored train state differs from the saved one")
+    batch = {k: v.to(dev) for k, v in batches[1].items()}
+    out["resume_vs_memory"] = _compare_steps("step from the restored state",
+                                             step(restored, batch), step(state1, batch),
+                                             lr_at(opt_cfg, 2).item())
+    log(f"[train-exact] {json.dumps(out)}")
+    del state, state1, restored, got, tree
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA card",
@@ -759,6 +997,17 @@ def main() -> int:
     log_dispatch_tables()
     for name, n in moe_launches.items():
         launches[name] += n
+
+    from repro_torch.configs import get_config
+    train = phase_train(dev, get_config(ARCH), steps=30, seed=4, card=card)
+    if not train["loss"][-1] < train["loss"][0] - 0.5:
+        raise AssertionError(f"{ARCH}: the loss fell from {train['loss'][0]} to "
+                             f"{train['loss'][-1]}, by no more than 0.5")
+    phase_train_exactness(dev, seed=5)
+    moe_cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=2)
+    moe_train = phase_train(dev, moe_cfg, steps=10, seed=6, card=card)
+    if not all(a > 0 for a in moe_train["aux"]):
+        raise AssertionError(f"{MOE_ARCH}: a router aux loss is not positive: {moe_train['aux']}")
     kernels = []
     for name, row, replaces in (
             ("paged_kv_gather", b1, "src/repro/kernels/paged_kv_gather/paged_kv_gather.py:26"),

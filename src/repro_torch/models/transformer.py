@@ -9,10 +9,20 @@ Matmul weights are held in the compute dtype (the reference casts them to it
 before every product); norm params and the MoE router stay float32, as the
 reference routes in float32 from its float32 params.
 
-* ``forward(params, batch, want_cache=False)`` -> (logits, aux, caches);
-  ``aux`` is the router aux loss summed over layers and divided by the
-  number of scan steps, as the reference returns it (0 for dense configs);
-  with ``want_cache`` the caches are (k, v), each [L, B, S, KV, hd].
+* ``init(gen, masters=False)``: random weights with the reference's
+  distributions.  Serving's default casts each block to the compute dtype
+  as it is made (``to_compute_dtype``), so the peak holds one float32
+  block; ``masters=True`` keeps every leaf float32 (training's master
+  weights, cast per step by ``train.loop.cast_params_for_compute``).
+* ``forward(params, batch, want_cache=False, remat=True)`` -> (logits, aux,
+  caches); ``aux`` is the router aux loss summed over layers and divided by
+  the number of scan steps, as the reference returns it (0 for dense
+  configs); with ``want_cache`` the caches are (k, v), each
+  [L, B, S, KV, hd].  With grad enabled, ``remat`` and no cache, each layer
+  runs under ``torch.utils.checkpoint`` (recomputed in the backward, as the
+  reference's ``jax.checkpoint`` does); values do not change.
+* ``loss(params, batch, remat=True)``: next-token cross entropy in float32
+  plus ``aux``, as the reference's ``Model.loss``.
 * ``decode_step(params, batch, caches)`` -> (logits, caches): ONE new token
   (``batch = {"tokens": [B, 1], "pos": int}``) against per-layer caches,
   updated in place; the aux loss is discarded, as in the reference.
@@ -24,6 +34,7 @@ import dataclasses
 from typing import Any, Callable
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.compat import torch_dtype
 from repro_torch.configs.base import ArchConfig
@@ -108,10 +119,24 @@ def to_compute_dtype(cfg: ArchConfig, params: dict) -> dict:
 @dataclasses.dataclass
 class Model:
     cfg: ArchConfig
-    init: Callable[[torch.Generator], Any]
-    forward: Callable[..., Any]          # (params, batch, want_cache=False)
+    init: Callable[..., Any]             # (gen, masters=False)
+    forward: Callable[..., Any]          # (params, batch, want_cache=False, remat=True)
     decode_step: Callable[..., Any]      # (params, batch, caches)
     init_caches: Callable[..., Any]      # (batch_size, capacity, device)
+
+    def loss(self, params, batch, remat=True):
+        """Mean next-token cross entropy over B x (S - 1) in float32, plus
+        the router aux loss.  Labels are ``tokens[:, 1:]`` unless
+        ``batch["labels"]`` is given."""
+        logits, aux, _ = self.forward(params, batch, remat=remat)
+        labels = batch.get("labels")
+        if labels is None:
+            labels = batch["tokens"][:, 1:]
+            logits = logits[:, :-1]
+        lf = logits.float()
+        lse = torch.logsumexp(lf, dim=-1)
+        ll = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+        return (lse - ll).mean() + aux
 
 
 def build_model(cfg: ArchConfig) -> Model:
@@ -129,10 +154,12 @@ def _build_decoder_lm(cfg: ArchConfig) -> Model:
     trip = cfg.n_layers // len(cfg.layer_pattern or ("layer",))   # the reference's scan steps
     rope_fn = make_rope_fn(cfg)
 
-    def init(gen: torch.Generator) -> dict:
+    def init(gen: torch.Generator, masters: bool = False) -> dict:
         """Random weights from ``gen`` (on the device the params go to), with
-        the reference's distributions."""
+        the reference's distributions: float32 with ``masters``, else cast
+        to the compute dtype one block at a time."""
         dev = gen.device
+        cast = (lambda tree: tree) if masters else (lambda tree: to_compute_dtype(cfg, tree))
 
         def block():
             p = {"ln1": L.init_norm(cfg, cfg.d_model, dev),
@@ -145,17 +172,17 @@ def _build_decoder_lm(cfg: ArchConfig) -> Model:
             return p
 
         p = {"embed": L.init_embedding(cfg, gen),
-             "blocks": [to_compute_dtype(cfg, block()) for _ in range(cfg.n_layers)],
+             "blocks": [cast(block()) for _ in range(cfg.n_layers)],
              "final_norm": L.init_norm(cfg, cfg.d_model, dev)}
         if not cfg.tie_embeddings:
             p["unembed"] = L.normal(gen, (cfg.d_model, cfg.vocab), 0.02)
-        return to_compute_dtype(cfg, p)
+        return cast(p)
 
     def _unembed_out(params, x):
         w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
         return L.unembed(cfg, w, x)
 
-    def forward(params, batch, want_cache=False):
+    def forward(params, batch, want_cache=False, remat=True):
         x = L.embed_tokens(cfg, params["embed"], batch["tokens"])
         B, S, _ = x.shape
         positions = batch.get("positions")
@@ -164,8 +191,14 @@ def _build_decoder_lm(cfg: ArchConfig) -> Model:
         rope = make_rope(cfg, positions)
         ks, vs = [], []
         aux = torch.zeros((), device=x.device)
+        recompute = remat and not want_cache and torch.is_grad_enabled()
         for p, window in zip(params["blocks"], windows):
-            x, a, kv = apply_tf_block(cfg, p, x, rope=rope, window=window, want_kv=want_cache)
+            if recompute:
+                x, a, kv = checkpoint(apply_tf_block, cfg, p, x, rope=rope, window=window,
+                                      use_reentrant=False)
+            else:
+                x, a, kv = apply_tf_block(cfg, p, x, rope=rope, window=window,
+                                          want_kv=want_cache)
             if a is not None:
                 aux = aux + a
             if want_cache:

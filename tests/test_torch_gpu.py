@@ -1,4 +1,4 @@
-"""The port's CUDA kernels and serving path on the card.
+"""The port's CUDA kernels, serving path and training path on the card.
 
 Every test here is marked ``gpu`` and skips where no card is present (the
 CUDA kernels have no CPU mode).  This file imports neither JAX nor the JAX
@@ -13,7 +13,9 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.bridge import train_state_from_numpy, train_state_to_numpy  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.data.pipeline import DataConfig, data_iterator, synth_batch  # noqa: E402
 from repro_torch.kernels.decode_attention import ops as da_ops  # noqa: E402
 from repro_torch.kernels.decode_attention.ref import paged_decode_attention_ref  # noqa: E402
 from repro_torch.kernels.paged_kv_gather import ops as gather_ops  # noqa: E402
@@ -25,6 +27,10 @@ from repro_torch.kernels.ring_all_to_all.ref import all_to_all_ref  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
 from repro_torch.serve.host_store import BACKENDS  # noqa: E402
+from repro_torch.train.checkpoint import restore_checkpoint, save_checkpoint  # noqa: E402
+from repro_torch.train.loop import init_train_state, make_train_step, train_loop  # noqa: E402
+from repro_torch.train.optimizer import AdamWConfig  # noqa: E402
+from repro_torch.train.tree import tree_leaves, tree_map  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -311,3 +317,66 @@ def test_rank_kernels_refused_launch_then_good_call(cuda):
         assert torch.equal(ag_ops.ring_all_gather(xs, "b2b", parts=sms // 8),
                            all_gather_ref(xs))
         ag_ops.check()
+
+
+# ------------------------------------------------------------- training ----
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "olmoe-1b-7b"])
+def test_train_step_on_card_matches_cpu(cuda, monkeypatch, arch):
+    """One float32 step (TF32 off, no compute cast) from the same state on
+    the card and on the CPU: loss and grad norm at 1e-5 relative, Adam
+    moments at 1e-4 of each leaf's largest element, params within 2 x lr
+    (Adam's first step is about lr * sign(g): where |g| is near eps the two
+    devices' rounding may move an element differently) and within 1e-6 for
+    all but 1e-3 of the elements."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = dataclasses.replace(get_config(arch).reduced(), compute_dtype="float32")
+    model = build_model(cfg)
+    state = init_train_state(model, torch.Generator().manual_seed(0))
+    lr = 1e-3
+    step = make_train_step(model, AdamWConfig(lr=lr, warmup_steps=1, total_steps=10),
+                           cast_params=False)
+    toks = synth_batch(DataConfig(vocab=cfg.vocab, seq_len=32, batch=2, seed=1), 0)["tokens"]
+    want_state, want = step(state, {"tokens": toks})
+    got_state, got = step(tree_map(lambda t: t.to(cuda), state), {"tokens": toks.to(cuda)})
+    for k in ("loss", "grad_norm"):
+        assert abs(got[k].item() / want[k].item() - 1) <= 1e-5, k
+    for k in ("m", "v"):
+        for g, w in zip(tree_leaves(got_state["opt"][k]), tree_leaves(want_state["opt"][k])):
+            assert (g.cpu() - w).abs().max() <= 1e-4 * w.abs().max()
+    off = total = 0
+    for g, w in zip(tree_leaves(got_state["params"]), tree_leaves(want_state["params"])):
+        err = (g.cpu() - w).abs()
+        assert err.max() <= 2 * lr
+        off += int((err > 1e-6).sum())
+        total += err.numel()
+    assert off <= 1e-3 * total
+    assert got_state["opt"]["step"].device.type == "cuda" and int(got_state["opt"]["step"]) == 1
+
+
+def test_checkpoint_from_card_restores_bit_equal(cuda, tmp_path):
+    """A train state on the card, after one step, through the reference's
+    .npz layout and back onto the card, bit for bit."""
+    cfg = get_config("olmoe-1b-7b").reduced()
+    model = build_model(cfg)
+    state = init_train_state(model, torch.Generator(device=cuda).manual_seed(1))
+    toks = synth_batch(DataConfig(vocab=cfg.vocab, seq_len=32, batch=2, seed=2), 0)["tokens"]
+    state, _ = make_train_step(model, AdamWConfig(lr=1e-3, warmup_steps=1))(
+        state, {"tokens": toks.to(cuda)})
+    path = str(tmp_path / "state.npz")
+    tree = train_state_to_numpy(cfg, state)
+    save_checkpoint(path, tree, step=1)
+    restored = train_state_from_numpy(cfg, restore_checkpoint(path, tree), device=cuda)
+    for a, b in zip(tree_leaves(restored), tree_leaves(state)):
+        assert a.device.type == "cuda" and a.dtype == b.dtype and torch.equal(a, b)
+
+
+def test_training_on_card_lowers_loss(cuda):
+    """Ten steps of reduced qwen2-0.5b (bf16 compute on float32 masters)."""
+    cfg = get_config("qwen2-0.5b").reduced()
+    dc = DataConfig(vocab=cfg.vocab, seq_len=64, batch=4, seed=0)
+    _, hist = train_loop(build_model(cfg), data_iterator(dc), steps=10,
+                         opt_cfg=AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=10),
+                         gen=torch.Generator(device=cuda).manual_seed(0), log_every=1,
+                         device=cuda)
+    assert all(np.isfinite(h["loss"]) for h in hist)
+    assert hist[-1]["loss"] < hist[0]["loss"]

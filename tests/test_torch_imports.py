@@ -36,7 +36,8 @@ def test_port_imports_no_jax_and_no_reference():
                  "core.collectives", "core.backend", "core.latte_moe", "models.moe",
                  "launch.collectives", "core.dma", "core.dma.claims", "core.dma.sim",
                  "core.dma.dispatch", "core.serving_model", "serve.workload",
-                 "models.transformer"):
+                 "models.transformer", "data.pipeline", "train.tree", "train.optimizer",
+                 "train.loop", "train.checkpoint", "launch.train", "bridge"):
         assert f"repro_torch.{name}" in out["imported"]
     loaded = out["loaded"]
     assert not [m for m in loaded if m == "jax" or m.startswith(("jax.", "jaxlib"))]
