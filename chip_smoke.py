@@ -13,8 +13,10 @@ Phases, in order; each raises on failure and nothing is caught:
    at atol/rtol 1e-5 (f32) and 2e-2 (bf16), with and without softcap, also
    for zero-length sequences (exactly 0), lengths 1 and bt + 1 (most of the
    S splits empty) and a 4096-token context, and unchanged when K/V past
-   each length are poisoned.  Times by CUDA events
-   (median of 50 after warm-up) beside each kernel's bound.
+   each length are poisoned; B1 also at qwen2-vl-72b's pool shape.  Times
+   by CUDA events (median of 50 after warm-up) beside each kernel's bound.
+   Tables padded past each length with -1, n_pool and 1000: B1 bit-equal
+   to its plain version (zero blocks there), B2 within its tolerances.
 4. Serving qwen2-0.5b at full width (24 layers, bf16, random weights from a
    seed): batch 4, context 1024, 16 new tokens; one miss pass, then a hit
    through each fetch backend.  Fetched blocks must be bit-equal to the
@@ -71,10 +73,25 @@ Phases, in order; each raises on failure and nothing is caught:
     (float32 masters, m and v of all 16 layers would not fit the card): 10
     steps as phase 10's, every loss and router aux loss finite, aux > 0,
     with phase 10's log lines.
-13. One JSON line naming every ported kernel with its launches on its path
-    (phases 4 and 8 for B1/B2, phase 7 for B3/B4; no kernel lies on the
-    training path).
-14. Last line: ``{"ok": true, "device": {...}}``.
+13. Serving qwen2-vl-72b at its published widths cut to 8 of 80 layers
+    (72.7 B params do not fit the card), M-RoPE, with phase 4's batch,
+    context, checks and times, and logits of 2-D text positions equal to
+    those of the same positions as [3, B, S] bit for bit; then its float32
+    exactness pass at 2 layers.
+14-16. rwkv6-1.6b, zamba2-2.7b and whisper-tiny at full width
+    (``FAMILY_RUNS``): a bf16 prefill through ``forward(want_cache=True)``
+    and 8 decode steps from its states, with call ms, busy ms, launches,
+    busy share and peak memory; then training through ``train_loop`` with
+    phase 10's log lines (zamba2 cut to 2 of its 9 super-blocks; whisper
+    30 steps, the loss falling by more than 0.5).
+17. Each of the three at its widths cut to 2 layers in float32 (TF32 off):
+    the card's forward within 1e-5 of the CPU's (of the largest logit),
+    and the token-by-token decode stream within 1e-4 of the forward.
+18. One JSON line naming every ported kernel with its launches on its path
+    (phases 4, 8 and 13 for B1/B2, phase 7 for B3/B4; no kernel lies on
+    the training or recurrent paths).
+19. Last line: ``{"ok": true, "device": {...}}``.  A ``[phase] name s``
+    line follows each phase with its wall seconds.
 
 Exits non-zero without printing a result when no CUDA device is present.
 """
@@ -112,6 +129,11 @@ L2_BYTES = 50e6                              # H100 L2 cache
 MOE_ARCH, MOE_TOKENS = "olmoe-1b-7b", 512    # latte MoE: tokens per rank
 TRAIN_B, TRAIN_S = 4, 1024                   # training: batch x sequence (4,096 tokens)
 EXACT_B, EXACT_S = 2, 256                    # the float32 card-vs-CPU step
+VLM_ARCH, VLM_LAYERS = "qwen2-vl-72b", 8      # 8 of 80 layers: 72.7 B params do not fit
+# family -> (batch, sequence, train steps, train layers (None: all), seed)
+FAMILY_RUNS = {"rwkv6-1.6b": (2, 512, 3, None, 20),
+               "zamba2-2.7b": (2, 512, 3, 12, 30),      # training: 2 of 9 super-blocks
+               "whisper-tiny": (4, 448, 30, None, 40)}
 
 
 def log(msg: str) -> None:
@@ -166,15 +188,21 @@ def _kind(name: str) -> str:
     return next((kind for kind, keys in KINDS if any(k.lower() in low for k in keys)), "other")
 
 
-def profile_step(fn, reps: int = 3) -> dict:
+def profile_step(fn, reps: int = 3, cuda_only: bool = False) -> dict:
     """Kernel (and copy) time per call of ``fn`` from ``torch.profiler``, with
     the five largest entries and the sums by kind of work; ``busy_ms`` is
-    None when the profiler records no device activity."""
+    None when the profiler records no device activity.  ``cuda_only`` is for
+    steps of 10^5 launches that have run before: it records device activity
+    alone (host events would cost the profiler more than the step) and
+    skips the warm-up call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    fn()
+    if not cuda_only:
+        fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA] if cuda_only else [ProfilerActivity.CPU,
+                                                            ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
@@ -227,13 +255,12 @@ def phase_build() -> None:
 
 
 # --------------------------------------------------------------------- 3 ----
-def check_gather(dev, arch: str) -> dict:
+def check_gather(dev, cfg) -> dict:
     """B1 at the pool shape the ``kernel`` fetch gives it when serving
-    ``arch``: one context's blocks, [CTX / BT, BT, layers x KV heads x hd]."""
-    from repro_torch.configs import get_config
+    ``cfg``: one context's blocks, [CTX / BT, BT, layers x KV heads x hd]."""
     from repro_torch.kernels.paged_kv_gather import ops
     from repro_torch.kernels.paged_kv_gather.ref import paged_kv_gather_ref
-    cfg = get_config(arch)
+    arch = cfg.name
     n, dkv = CTX // BT, cfg.n_layers * cfg.n_kv_heads * cfg.head_dim
     g = torch.Generator(device=dev).manual_seed(1)
     tbl = torch.randperm(n, generator=g, device=dev).to(torch.int32)
@@ -373,15 +400,16 @@ def _engine(cfg, dev, seed=0):
     return ServeEngine(model, params, device=dev)
 
 
-def phase_serving(dev, arch: str, seed: int) -> dict:
+def phase_serving(dev, cfg, seed: int) -> dict:
     """One serving path at full width: warm-up, then the main path with the
     kernels' counts zeroed just before and read just after, its checks, and
     its times.  Returns the path's launch counts."""
-    from repro_torch.configs import get_config
     from repro_torch.kernels.decode_attention import ops as da_ops
     from repro_torch.kernels.paged_kv_gather import ops as gather_ops
     from repro_torch.serve.host_store import BACKENDS
-    cfg = get_config(arch)
+    arch = cfg.name
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
     eng = _engine(cfg, dev, seed)
     rng = np.random.default_rng(seed)
     prompts = rng.integers(0, cfg.vocab, (B, CTX)).astype(np.int32)
@@ -438,6 +466,16 @@ def phase_serving(dev, arch: str, seed: int) -> dict:
     if logits.shape != (1, 64, cfg.vocab) or not torch.isfinite(logits).all() \
             or not math.isfinite(aux.item()):
         raise AssertionError(f"{arch}: non-finite or misshapen logits")
+    if cfg.rope_kind == "mrope":     # text positions: 2-D == broadcast to [3, B, S]
+        pos2 = torch.arange(64, dtype=torch.int32, device=dev)[None]
+        l2, _, _ = eng.model.forward(eng.params, {"tokens": probe, "positions": pos2})
+        l3, _, _ = eng.model.forward(eng.params, {"tokens": probe,
+                                                  "positions": pos2.expand(3, 1, 64)})
+        if not (torch.equal(l2, l3) and torch.equal(l2, logits)):
+            raise AssertionError(f"{arch}: M-RoPE logits of 2-D text positions differ from "
+                                 "those of the same positions as [3, B, S]")
+        log(f"[serve] {arch}: M-RoPE logits from 2-D text positions == from [3, B, S], "
+            "bit for bit")
 
     # Two more passes of each path for the time medians (the main path's
     # pass is the first sample); a miss needs contexts not yet stored.
@@ -468,7 +506,11 @@ def phase_serving(dev, arch: str, seed: int) -> dict:
         row["busy_share"] = row["busy_ms"] / row["call_ms"] if row["busy_ms"] else None
         step_ms[name] = row
     n_blocks, block_bytes = eng.store.blocks_for(keys[0])
-    out = {"arch": arch, "dtype": cfg.compute_dtype, "batch": B, "ctx": CTX, "new": NEW,
+    out = {"arch": arch, "n_layers": cfg.n_layers, "dtype": cfg.compute_dtype,
+           "batch": B, "ctx": CTX, "new": NEW,
+           "params": sum(t.numel() for t in _leaves(eng.params)),
+           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+           "phase_s": time.perf_counter() - t_phase,
            "kv_blocks_per_ctx": n_blocks, "kv_bytes_per_ctx": n_blocks * block_bytes,
            "ttft_batch_ms_median": {k: statistics.median(v) for k, v in ttft.items()},
            "ttft_batch_ms_samples": ttft,
@@ -787,21 +829,37 @@ def _leaves(tree):
 
 
 def _matmul_params(cfg, params) -> float:
-    """N of 6·N·T: the weights a token's matmuls use, i.e. every block
-    leaf, with an MoE block's experts counted at top_k / n_experts, plus the
-    unembedding product (vocab x d_model, tied or not)."""
-    n = float(sum(t.numel() for t in _leaves(params["blocks"])))
+    """N of 6·N·T: the weights a token's matmuls use, i.e. every leaf of the
+    decoder's stack of layers, with an MoE block's experts counted at top_k
+    / n_experts and Zamba2's shared attention block once per super-block,
+    plus the unembedding product (vocab x d_model, tied or not).  Whisper's
+    encoder runs on other tokens (``_encoder_matmul_params``)."""
+    stack = {"ssm": "blocks", "hybrid": "supers", "audio": "dec_blocks"}.get(cfg.family, "blocks")
+    n = float(sum(t.numel() for t in _leaves(params[stack])))
     if cfg.moe:
         experts = sum(b["moe"][k].numel() for b in params["blocks"] for k in ("wg", "wu", "wd"))
         n -= experts * (1 - cfg.moe.top_k / cfg.moe.n_experts)
+    if cfg.family == "hybrid":
+        n += cfg.n_layers // cfg.hybrid.attn_every * sum(
+            t.numel() for t in _leaves(params["shared_attn"]))
     return n + cfg.vocab * cfg.d_model
 
 
-def phase_train(dev, cfg, steps: int, seed: int, card: str) -> dict:
+def _encoder_matmul_params(cfg, params) -> float:
+    return float(sum(t.numel() for t in _leaves(params["enc_blocks"]))) \
+        if cfg.family == "audio" else 0.0
+
+
+
+
+def phase_train(dev, cfg, steps: int, seed: int, card: str, batch_size: int = TRAIN_B,
+                seq: int = TRAIN_S, cuda_only: bool = False) -> dict:
     """Train ``cfg`` through ``train_loop`` (bf16 compute on float32
-    masters); the router aux loss of every step is recorded by wrapping the
+    masters) on ``batch_size`` x ``seq`` tokens a step (and Whisper's stub
+    features); the router aux loss of every step is recorded by wrapping the
     model's forward.  Checks finiteness; returns the history and times."""
     from repro_torch.data.pipeline import DataConfig, data_iterator, synth_batch
+    from repro_torch.launch.train import with_encoder_feats
     from repro_torch.models import build_model
     from repro_torch.train.loop import cast_params_for_compute, make_train_step, train_loop
     from repro_torch.train.optimizer import AdamWConfig, adamw_update
@@ -816,10 +874,12 @@ def phase_train(dev, cfg, steps: int, seed: int, card: str) -> dict:
 
     model = dataclasses.replace(model, forward=recording_forward)
     opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=5, total_steps=steps)
-    dc = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_S, batch=TRAIN_B, seed=seed)
+    dc = DataConfig(vocab=cfg.vocab, seq_len=seq, batch=batch_size, seed=seed)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    state, hist = train_loop(model, data_iterator(dc), steps=steps, opt_cfg=opt_cfg,
+    state, hist = train_loop(model, with_encoder_feats(cfg, data_iterator(dc), batch_size, seed,
+                                                       dev),
+                             steps=steps, opt_cfg=opt_cfg,
                              gen=torch.Generator(device=dev).manual_seed(seed), log_every=1,
                              device=dev)
     wall = time.perf_counter() - t0
@@ -841,33 +901,37 @@ def phase_train(dev, cfg, steps: int, seed: int, card: str) -> dict:
     walls = [hist[0]["wall_s"]] + [b["wall_s"] - a["wall_s"] for a, b in zip(hist, hist[1:])]
     step_ms = statistics.median(walls[2:]) * 1e3
     step_fn = make_train_step(model, opt_cfg)
-    batch = {k: v.to(dev) for k, v in synth_batch(dc, steps).items()}
-    prof = profile_step(lambda: step_fn(state, batch), reps=2)
+    batch = next(with_encoder_feats(cfg, iter([synth_batch(dc, steps)]), batch_size, seed, dev))
+    batch = {k: v.to(dev) for k, v in batch.items()}
+    reps = 1 if cuda_only else 2
+    prof = profile_step(lambda: step_fn(state, batch), reps=reps, cuda_only=cuda_only)
     # the step's parts: the forward and loss alone, and AdamW alone (the
     # moments stand in for gradients: the same ops on the same shapes);
     # recomputation and backward are the rest
     with torch.no_grad():
         fwd = profile_step(lambda: model.loss(cast_params_for_compute(state["params"]), batch,
-                                              remat=False), reps=2)
+                                              remat=False), reps=reps, cuda_only=cuda_only)
     adamw = profile_step(lambda: adamw_update(opt_cfg, state["params"], state["opt"]["m"],
-                                              state["opt"]), reps=2)
+                                              state["opt"]), reps=reps, cuda_only=cuda_only)
     parts = {name: {"busy_ms": p["busy_ms"], "device_launches": p["device_launches"]}
              for name, p in (("forward_and_loss", fwd), ("adamw", adamw))}
     parts["recompute_and_backward"] = {
         k: prof[k] - fwd[k] - adamw[k] for k in ("busy_ms", "device_launches")}
-    tokens = TRAIN_B * TRAIN_S
+    tokens = batch_size * seq
     n_mm = _matmul_params(cfg, state["params"])
-    bound = 8 * n_mm * tokens / PEAK_FLOPS[torch.bfloat16] * 1e3
+    enc_tokens = batch_size * cfg.encdec.encoder_seq if cfg.encdec else 0
+    bound = 8 * (n_mm * tokens + _encoder_matmul_params(cfg, state["params"]) * enc_tokens) \
+        / PEAK_FLOPS[torch.bfloat16] * 1e3
     out = {"arch": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
            "vocab": cfg.vocab, "params": sum(t.numel() for t in _leaves(state["params"])),
-           "batch": TRAIN_B, "seq": TRAIN_S, "steps": steps, "lr": opt_cfg.lr,
+           "batch": batch_size, "seq": seq, "steps": steps, "lr": opt_cfg.lr,
            "loss": losses, "grad_norm": gnorms, "aux": aux,
            "step_call_ms_median": step_ms, "step_ms_samples": [w * 1e3 for w in walls],
            "busy_ms": prof["busy_ms"],
            "busy_share": prof["busy_ms"] / step_ms if prof["busy_ms"] else None,
            "device_launches_per_step": prof["device_launches"], "top_ms": prof["top_ms"],
            "busy_ms_by_kind": prof["busy_ms_by_kind"], "parts": parts,
-           "tokens_per_s": tokens / (step_ms / 1e3),
+           "tokens_per_s": tokens / (step_ms / 1e3), "phase_s": time.perf_counter() - t0,
            "max_memory_allocated_bytes": peak, "loop_wall_s": wall,
            "matmul_params_N": n_mm, "compute_bound_ms_8NT_bf16": bound,
            "bound_share": bound / step_ms, "card": card}
@@ -972,6 +1036,173 @@ def phase_train_exactness(dev, seed: int) -> dict:
     return out
 
 
+# --------------------------------------------------------------------- 3 ----
+def check_out_of_range_tables(dev) -> None:
+    """ROADMAP C-port3: tables padded past each length with -1, n_pool and
+    1000.  B1 bit-equal to its plain version (zero blocks there), B2 within
+    its tolerances of its plain version, f32 and bf16."""
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.decode_attention.ref import paged_decode_attention_ref
+    from repro_torch.kernels.paged_kv_gather import ops as gather_ops
+    from repro_torch.kernels.paged_kv_gather.ref import paged_kv_gather_ref
+    g = torch.Generator(device=dev).manual_seed(8)
+    n_pool = 4
+    errs = {}
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+        pool = _randn(g, (n_pool, BT, 2048), dtype, dev)
+        tbl = torch.tensor([2, -1, n_pool, 0, 1000, 3], dtype=torch.int32, device=dev)
+        out, ref = gather_ops.gather_blocks(pool, tbl), paged_kv_gather_ref(pool, tbl)
+        torch.cuda.synchronize()
+        if not torch.equal(out, ref) or torch.count_nonzero(out[[1, 2, 4]]) != 0:
+            raise AssertionError(f"paged_kv_gather {dtype}: out-of-range entries are not "
+                                 "zero blocks equal to the plain version's")
+        q = _randn(g, (2, 2, 7, 64), dtype, dev)
+        kp, vp = (_randn(g, (n_pool, BT, 2, 64), dtype, dev) for _ in range(2))
+        lengths = torch.tensor([20, 24], dtype=torch.int32, device=dev)
+        for pad in (-1, n_pool, 1000):
+            tables = torch.tensor([[0, 1, pad, pad], [2, 3, pad, pad]], dtype=torch.int32,
+                                  device=dev)
+            o = da_ops.decode_attention(q, kp, vp, tables, lengths)
+            r = paged_decode_attention_ref(q, kp, vp, tables, lengths)
+            torch.cuda.synchronize()
+            if not torch.isfinite(o.float()).all():
+                raise AssertionError(f"paged_decode_attention {dtype} pad {pad}: not finite")
+            torch.testing.assert_close(o.float(), r.float(), atol=tol, rtol=tol)
+            errs[f"{str(dtype)[6:]} pad {pad}"] = (o.float() - r.float()).abs().max().item()
+    log(f"[kernel] C-port3: tables padded with -1, n_pool, 1000: paged_kv_gather bit-equal "
+        f"(zero blocks), paged_decode_attention max_abs_err {json.dumps(errs)}")
+
+
+# ---------------------------------------------------------------- 13-17 ----
+def _family_batch(cfg, batch_size: int, seq: int, seed: int, dev) -> dict:
+    g = torch.Generator(device=dev).manual_seed(seed)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (batch_size, seq), generator=g, device=dev,
+                                     dtype=torch.int32)}
+    if cfg.family == "audio":
+        batch["encoder_feats"] = torch.randn((batch_size, cfg.encdec.encoder_seq, cfg.d_model),
+                                             generator=g, device=dev)
+    return batch
+
+
+def _decode_caches(model, cache_out, capacity: int):
+    """The decode caches of the states ``forward(want_cache=True)`` returns:
+    rwkv's are its states; zamba's attention K/V and whisper's self K/V go
+    into caches of ``capacity``; whisper's cross K/V are taken as they are."""
+    from repro_torch.models.attention import prefill_cache
+    cfg = model.cfg
+    if cfg.family == "ssm":
+        return cache_out
+    if cfg.family == "hybrid":
+        return {"mamba": cache_out["mamba"],
+                "attn": [prefill_cache(cfg, k, v, capacity) for k, v in cache_out["kv"]]}
+    return {"self": [prefill_cache(cfg, k, v, capacity) for k, v in cache_out["self"]],
+            "cross": cache_out["cross"]}
+
+
+def phase_family(dev, cfg, seed: int, batch_size: int, seq: int, n_decode: int = 8) -> dict:
+    """A family at full width: a bf16 prefill of ``batch_size`` x ``seq``
+    through ``forward(want_cache=True)``, then ``n_decode`` greedy decode
+    steps from the returned states.  Checks shapes and finiteness; logs call
+    ms, busy ms, launches and busy share of the prefill and of one decode
+    step, and the peak memory."""
+    from repro_torch.models import build_model
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(seed))
+    n_params = sum(t.numel() for t in _leaves(params))
+    batch = _family_batch(cfg, batch_size, seq, seed, dev)
+    with torch.no_grad():
+        logits, _, cache_out = model.forward(params, batch, want_cache=True)
+        caches = _decode_caches(model, cache_out, seq + n_decode + 1)
+        tok = logits[:, -1:].argmax(-1)
+        tokens = [tok]
+        for i in range(n_decode):
+            step_logits, caches = model.decode_step(params, {"tokens": tok, "pos": seq + i},
+                                                    caches)
+            if step_logits.shape != (batch_size, 1, cfg.vocab) \
+                    or not torch.isfinite(step_logits.float()).all():
+                raise AssertionError(f"{cfg.name}: decode step {i}: misshapen or non-finite")
+            tok = step_logits.argmax(-1)
+            tokens.append(tok)
+    if logits.shape != (batch_size, seq, cfg.vocab) or not torch.isfinite(logits.float()).all():
+        raise AssertionError(f"{cfg.name}: prefill logits misshapen or non-finite")
+    path_s = time.perf_counter() - t0
+    with torch.no_grad():
+        steps = {"prefill": lambda: model.forward(params, batch, want_cache=True),
+                 "decode_step": lambda: model.decode_step(
+                     params, {"tokens": tok, "pos": seq + n_decode}, caches)}
+        times = {}
+        for name, fn in steps.items():
+            # the prefill has run once already (the path above)
+            row = {"call_ms": call_ms(fn, reps=2, warmup=0) if name == "prefill"
+                   else call_ms(fn, reps=10, warmup=1), **profile_step(fn, reps=1, cuda_only=True)}
+            row["busy_share"] = row["busy_ms"] / row["call_ms"] if row["busy_ms"] else None
+            times[name] = row
+    out = {"arch": cfg.name, "family": cfg.family, "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "params": n_params, "dtype": cfg.compute_dtype,
+           "batch": batch_size, "seq": seq, "decode_steps": n_decode,
+           "tokens": torch.cat(tokens, 1)[0].tolist(), "path_s": path_s,
+           "step_ms": times, "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+           "phase_s": time.perf_counter() - t0}
+    log(f"[family] {json.dumps(out)}")
+    del model, params, batch, logits, cache_out, caches, steps
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_family_exactness(dev, cfg, seed: int) -> dict:
+    """``cfg``'s widths at 2 layers in float32 (TF32 off): the card's forward
+    against the CPU's on the same params and inputs within 1e-5 of the
+    largest logit, and on the card the token-by-token decode stream from
+    empty caches (Whisper's cross K/V from the forward) against the full
+    forward within 1e-4 (the reference's
+    ``test_ssm_state_streaming_equivalence``, at a float32 tolerance)."""
+    from repro_torch.models import build_model
+    from repro_torch.train.tree import tree_map
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    changes = {"n_layers": 2, "compute_dtype": "float32"}
+    if cfg.hybrid:
+        changes["hybrid"] = dataclasses.replace(cfg.hybrid, attn_every=1)
+    cfg = dataclasses.replace(cfg, **changes)
+    model = build_model(cfg)
+    cpu_params = model.init(torch.Generator().manual_seed(seed))
+    params = tree_map(lambda t: t.to(dev), cpu_params)
+    B, S = 1, 32
+    cpu_batch = _family_batch(cfg, B, S, seed, torch.device("cpu"))
+    batch = {k: v.to(dev) for k, v in cpu_batch.items()}
+    with torch.no_grad():
+        want, _, _ = model.forward(cpu_params, cpu_batch)
+        full, _, cache_out = model.forward(params, batch, want_cache=True)
+        scale = want.abs().max().item()
+        card_vs_cpu = (full.cpu() - want).abs().max().item() / scale
+        if not card_vs_cpu <= 1e-5:
+            raise AssertionError(f"{cfg.name}: card forward differs from the CPU's by "
+                                 f"{card_vs_cpu} of the largest logit")
+        caches = model.init_caches(B, S + 2, dev)
+        if cfg.family == "audio":
+            caches["cross"] = cache_out["cross"]
+        stream = []
+        for t in range(S):
+            dl, caches = model.decode_step(params, {"tokens": batch["tokens"][:, t:t + 1],
+                                                    "pos": t}, caches)
+            stream.append(dl)
+        stream_err = (torch.cat(stream, 1) - full).abs().max().item()
+    if not stream_err <= 1e-4:
+        raise AssertionError(f"{cfg.name}: the decode stream differs from the forward by "
+                             f"{stream_err}")
+    out = {"arch": cfg.name, "n_layers": 2, "attn_every": cfg.hybrid.attn_every if cfg.hybrid
+           else None, "tokens": B * S, "card_vs_cpu_rel": card_vs_cpu,
+           "stream_vs_forward_abs": stream_err, "max_abs_logit": scale}
+    log(f"[family-exact] {json.dumps(out)}")
+    del model, cpu_params, params, caches, cache_out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA card",
@@ -979,35 +1210,68 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.join(REPO, "src"))
     import repro_torch  # noqa: F401  (fails in a directory without the port)
+    from repro_torch.configs import get_config
     t0 = time.perf_counter()
     dev = torch.device("cuda")
-    card = phase_card()
-    phase_build()
-    b1 = check_gather(dev, ARCH)
-    b1_moe = check_gather(dev, MOE_ARCH)
-    b2 = check_decode_attention(dev)
-    launches = phase_serving(dev, ARCH, seed=0)
-    phase_exactness(dev, ARCH, seed=1)
-    check_rank_kernels(dev)
-    path = phase_collectives_path(dev)
-    phase_moe_exactness(dev)
+    phase_s = {}
+
+    def run(name, fn, *args, **kw):
+        t = time.perf_counter()
+        out = fn(*args, **kw)
+        phase_s[name] = time.perf_counter() - t
+        log(f"[phase] {name} {phase_s[name]:.3f}s")
+        return out
+
+    card = run("card", phase_card)
+    run("build", phase_build)
+    vlm_cfg = dataclasses.replace(get_config(VLM_ARCH), n_layers=VLM_LAYERS)
+    b1 = run("gather", check_gather, dev, get_config(ARCH))
+    b1_moe = run("gather_moe", check_gather, dev, get_config(MOE_ARCH))
+    b1_vlm = run("gather_vlm", check_gather, dev, vlm_cfg)
+    b2 = run("decode_attention", check_decode_attention, dev)
+    run("out_of_range_tables", check_out_of_range_tables, dev)
+    launches = run("serve_" + ARCH, phase_serving, dev, get_config(ARCH), seed=0)
+    run("exact_" + ARCH, phase_exactness, dev, ARCH, seed=1)
+    run("rank_kernels", check_rank_kernels, dev)
+    path = run("collectives_path", phase_collectives_path, dev)
+    run("moe_exact", phase_moe_exactness, dev)
     launches.update(path["launches"])
-    moe_launches = phase_serving(dev, MOE_ARCH, seed=2)
-    phase_exactness(dev, MOE_ARCH, seed=3)
-    log_dispatch_tables()
+    moe_launches = run("serve_" + MOE_ARCH, phase_serving, dev, get_config(MOE_ARCH), seed=2)
+    run("exact_" + MOE_ARCH, phase_exactness, dev, MOE_ARCH, seed=3)
+    run("dispatch", log_dispatch_tables)
     for name, n in moe_launches.items():
         launches[name] += n
 
-    from repro_torch.configs import get_config
-    train = phase_train(dev, get_config(ARCH), steps=30, seed=4, card=card)
+    train = run("train_" + ARCH, phase_train, dev, get_config(ARCH), steps=30, seed=4, card=card)
     if not train["loss"][-1] < train["loss"][0] - 0.5:
         raise AssertionError(f"{ARCH}: the loss fell from {train['loss'][0]} to "
                              f"{train['loss'][-1]}, by no more than 0.5")
-    phase_train_exactness(dev, seed=5)
+    run("train_exact", phase_train_exactness, dev, seed=5)
     moe_cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=2)
-    moe_train = phase_train(dev, moe_cfg, steps=10, seed=6, card=card)
+    moe_train = run("train_" + MOE_ARCH, phase_train, dev, moe_cfg, steps=10, seed=6, card=card)
     if not all(a > 0 for a in moe_train["aux"]):
         raise AssertionError(f"{MOE_ARCH}: a router aux loss is not positive: {moe_train['aux']}")
+
+    # 13: vlm serving at full width, depth cut to VLM_LAYERS
+    vlm_launches = run("serve_" + VLM_ARCH, phase_serving, dev, vlm_cfg, seed=7)
+    run("exact_" + VLM_ARCH, phase_exactness, dev, VLM_ARCH, seed=8)
+    for name, n in vlm_launches.items():
+        launches[name] += n
+    # 14-16: the recurrent and encoder-decoder families
+    for arch, (b, sq, n_train, train_layers, seed) in FAMILY_RUNS.items():
+        cfg = get_config(arch)
+        run("family_" + arch, phase_family, dev, cfg, seed=seed, batch_size=b, seq=sq)
+        if train_layers:
+            cfg = dataclasses.replace(cfg, n_layers=train_layers)
+        hist = run("train_" + arch, phase_train, dev, cfg, steps=n_train, seed=seed + 1,
+                   card=card, batch_size=b, seq=sq, cuda_only=cfg.family != "audio")
+        if cfg.family == "audio" and not hist["loss"][-1] < hist["loss"][0] - 0.5:
+            raise AssertionError(f"{arch}: the loss fell from {hist['loss'][0]} to "
+                                 f"{hist['loss'][-1]}, by no more than 0.5")
+    # 17: float32 exactness of the new families at 2 layers
+    for arch, (_, _, _, _, seed) in FAMILY_RUNS.items():
+        run("family_exact_" + arch, phase_family_exactness, dev, get_config(arch), seed + 2)
+
     kernels = []
     for name, row, replaces in (
             ("paged_kv_gather", b1, "src/repro/kernels/paged_kv_gather/paged_kv_gather.py:26"),
@@ -1026,12 +1290,15 @@ def main() -> int:
                  "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                  "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
         if name == "paged_kv_gather":
-            entry["launches_by_path"] = {ARCH: launches[name] - moe_launches[name],
-                                         MOE_ARCH: moe_launches[name]}
-            entry["at_" + MOE_ARCH] = {k: b1_moe[k] for k in (
-                "kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err")}
+            entry["launches_by_path"] = {
+                ARCH: launches[name] - moe_launches[name] - vlm_launches[name],
+                MOE_ARCH: moe_launches[name], VLM_ARCH: vlm_launches[name]}
+            for arch, b1_row in ((MOE_ARCH, b1_moe), (VLM_ARCH, b1_vlm)):
+                entry["at_" + arch] = {k: b1_row[k] for k in (
+                    "kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err")}
         kernels.append(entry)
-    log(f"[done] {time.perf_counter() - t0:.1f}s on {card}")
+    log(f"[done] {time.perf_counter() - t0:.1f}s on {card}; phases (s): "
+        f"{json.dumps({k: round(v, 3) for k, v in phase_s.items()})}")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,13 +1,23 @@
 """Weight bridge between the reference's params (numpy) and the port's.
 
 The input is ``jax.tree.map(np.asarray, params)`` of the JAX model: a nested
-dict whose ``blocks`` is a tuple of ``per_unit`` dicts (one per entry of the
-config's layer pattern), each leaf stacked on a leading axis of
-``n_layers // per_unit`` scan steps.  Layer ``u * per_unit + i`` of the
-model is scan step ``u`` of unit ``i``.
+dict whose stacks of layers carry a leading scan axis.  The reference lays
+them out by family:
 
-No weight is transposed: the port keeps the reference's ``x @ w`` layout,
-``[in, out]``:
+* decoder LMs (dense / moe / vlm): ``blocks`` is a tuple of ``per_unit``
+  dicts (one per entry of the config's layer pattern), each stacked over
+  ``n_layers // per_unit`` scan steps; layer ``u * per_unit + i`` is scan
+  step ``u`` of unit ``i``;
+* rwkv (ssm): ``blocks`` is one dict stacked over the layers;
+* zamba (hybrid): ``supers`` is a tuple of ``attn_every`` dicts, each
+  stacked over the super-blocks (mamba layer ``u * attn_every + i`` is
+  step ``u`` of unit ``i``); ``shared_attn`` is one unstacked block;
+* whisper (audio): ``enc_blocks`` and ``dec_blocks``, each one dict stacked
+  over its layers.
+
+The port holds each such stack as a flat list of per-layer dicts, in layer
+order.  No weight is transposed: the port keeps the reference's ``x @ w``
+layout, ``[in, out]``:
 
 * ``embed``             [V, D]          (tied: the unembedding is ``embed.T``)
 * ``unembed``           [D, V]          (untied configs only)
@@ -19,6 +29,8 @@ No weight is transposed: the port keeps the reference's ``x @ w`` layout,
 * ``ln1``/``ln2``/``final_norm``  ``scale`` [D] (+ ``bias`` for layernorm)
 * ``moe.router`` [D, E], ``moe.wg``/``wu`` [E, D, F], ``moe.wd`` [E, F, D]
   (moe family, in place of ``mlp``)
+* the rwkv, mamba2 and whisper leaves as ``models.rwkv6``,
+  ``models.mamba2`` and ``models.transformer`` make them.
 
 MoE layer params (``moe_params_from_numpy``, the dict of ``init_moe``):
 
@@ -30,14 +42,13 @@ held as they are; ``core.latte_moe.shard_experts`` gives rank r the experts
 the reference.
 
 The only reshaping is unstacking the layer axis into the port's per-layer
-list.  ``params_from_numpy`` (serving) casts matmul weights to the compute
-dtype, norm params and the router to float32
-(``transformer.to_compute_dtype``).  The train state
+lists.  ``params_from_numpy`` (serving) casts to the compute dtype all but
+the leaves the reference reads in float32 (``transformer.to_compute_dtype``).  The train state
 (``train_state_from_numpy``: ``{"params", "opt": {"m", "v", "step"}}``)
 keeps every leaf float32, with no compute cast.  ``params_to_numpy`` and
 ``train_state_to_numpy`` restack the per-layer list into the reference's
-per-unit stacked layout, so the result has the reference's leaves, shapes
-and ``jax.tree_util`` order (``blocks`` a tuple).  This module imports
+stacked layout, so the result has the reference's leaves, shapes and
+``jax.tree_util`` order.  This module imports
 neither JAX nor the JAX package; the caller does the ``np.asarray``.
 """
 from __future__ import annotations
@@ -60,29 +71,51 @@ def _layer(tree, step: int, device):
     return _tensor(tree[step], device)
 
 
-def _check_family(cfg: ArchConfig) -> None:
-    if cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(
-            f"weight bridge covers the dense and moe families, got {cfg.family!r}")
+def _whole(tree, device):
+    if isinstance(tree, dict):
+        return {k: _whole(v, device) for k, v in tree.items()}
+    return _tensor(tree, device)
+
+
+def stacked_keys(cfg: ArchConfig) -> dict:
+    """The reference's stacks of layers: key -> the number of units per scan
+    step (a tuple of that many dicts) or None (one dict stacked over the
+    layers)."""
+    if cfg.family in ("dense", "moe", "vlm"):
+        return {"blocks": len(cfg.layer_pattern or ("layer",))}
+    if cfg.family == "ssm":
+        return {"blocks": None}
+    if cfg.family == "hybrid":
+        return {"supers": cfg.hybrid.attn_every}
+    if cfg.family == "audio":
+        return {"enc_blocks": None, "dec_blocks": None}
+    raise ValueError(f"unknown family {cfg.family!r}")
+
+
+def _first_leaf(tree):
+    return _first_leaf(next(iter(tree.values()))) if isinstance(tree, dict) else tree
 
 
 def _unstack(cfg: ArchConfig, tree: dict, dev: torch.device) -> dict:
     """Reference params -> port params, every leaf float32."""
-    units = tree["blocks"]
-    per_unit = len(units)
-    trip = cfg.n_layers // per_unit
-    blocks = [_layer(units[i], u, dev) for u in range(trip) for i in range(per_unit)]
-    params = {"embed": _tensor(tree["embed"], dev), "blocks": blocks,
-              "final_norm": {k: _tensor(v, dev) for k, v in tree["final_norm"].items()}}
-    if "unembed" in tree:
-        params["unembed"] = _tensor(tree["unembed"], dev)
+    stacks = stacked_keys(cfg)
+    params = {}
+    for key, value in tree.items():
+        if key not in stacks:
+            params[key] = _whole(value, dev)
+        elif stacks[key] is None:
+            n = np.shape(_first_leaf(value))[0]
+            params[key] = [_layer(value, i, dev) for i in range(n)]
+        else:
+            n_units = len(value)
+            trip = np.shape(_first_leaf(value[0]))[0]
+            params[key] = [_layer(value[i], u, dev) for u in range(trip) for i in range(n_units)]
     return params
 
 
 def params_from_numpy(cfg: ArchConfig, tree: dict, device="cuda") -> dict:
     """Reference params (nested dict of numpy arrays) -> port params on
-    ``device`` for the dense and MoE decoder families, in the compute dtype."""
-    _check_family(cfg)
+    ``device``, in the compute dtype but for the float32 leaves."""
     return to_compute_dtype(cfg, _unstack(cfg, tree, resolve_device(device)))
 
 
@@ -90,7 +123,6 @@ def train_state_from_numpy(cfg: ArchConfig, state: dict, device="cuda") -> dict:
     """Reference train state ``{"params", "opt": {"m", "v", "step"}}`` as
     numpy -> the port's on ``device``: float32 masters and moments, ``step``
     a 0-d int32 tensor."""
-    _check_family(cfg)
     dev = resolve_device(device)
     opt = state["opt"]
     return {"params": _unstack(cfg, state["params"], dev),
@@ -110,15 +142,23 @@ def _stack(layers: list):
 
 def params_to_numpy(cfg: ArchConfig, params: dict) -> dict:
     """Port params (or a tree of their shape, such as gradients or Adam
-    moments) -> the reference's layout as numpy: ``blocks`` a tuple of
-    ``per_unit`` dicts, each leaf stacked over the ``n_layers // per_unit``
-    scan steps (layer ``u * per_unit + i`` -> unit ``i``, step ``u``)."""
-    _check_family(cfg)
-    per_unit = len(cfg.layer_pattern or ("layer",))
-    blocks = params["blocks"]
-    out = {k: ({n: _numpy(t) for n, t in v.items()} if isinstance(v, dict) else _numpy(v))
-           for k, v in params.items() if k != "blocks"}
-    out["blocks"] = tuple(_stack(blocks[i::per_unit]) for i in range(per_unit))
+    moments) -> the reference's layout as numpy: each per-layer list
+    restacked as ``stacked_keys`` gives it (for a key of n units, layer
+    ``u * n + i`` -> unit ``i``, step ``u``)."""
+    stacks = stacked_keys(cfg)
+
+    def whole(t):
+        return {k: whole(v) for k, v in t.items()} if isinstance(t, dict) else _numpy(t)
+
+    out = {}
+    for key, value in params.items():
+        if key not in stacks:
+            out[key] = whole(value)
+        elif stacks[key] is None:
+            out[key] = _stack(value)
+        else:
+            n = stacks[key]
+            out[key] = tuple(_stack(value[i::n]) for i in range(n))
     return out
 
 

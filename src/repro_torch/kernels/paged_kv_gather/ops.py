@@ -30,7 +30,8 @@ def _kernel():
 
 def gather_blocks(pool: torch.Tensor, block_table: torch.Tensor) -> torch.Tensor:
     """pool [n_pool, block_tokens, d_kv] f32/bf16, block_table [n] int32
-    (repeats allowed, entries in [0, n_pool)) -> [n, block_tokens, d_kv]."""
+    (repeats allowed) -> [n, block_tokens, d_kv]; an entry outside
+    [0, n_pool) gives a zero block."""
     global launches
     if pool.dim() != 3:
         raise ValueError(f"pool must be [n_pool, block_tokens, d_kv], got {tuple(pool.shape)}")

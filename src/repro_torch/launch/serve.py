@@ -6,6 +6,8 @@ comparing KV-fetch backends (the paper's §5.3 workload), on the card.
 Runs the miss path (prefill + save), then a hit through each fetch backend,
 and asserts that every backend gives the miss path's tokens, as the JAX
 entry point does, on the reduced config with random weights from ``--seed``.
+The engine serves the decoder-LM families (dense, moe, vlm); the others
+exit, as with the reference.
 Beside each hit's measured TTFT it prints ``fetch_modeled``: the modeled
 fetch latency on the reference's MI300X platform (DMA engine model), not a
 measurement.
@@ -24,7 +26,7 @@ from repro_torch.serve.engine import ServeEngine
 from repro_torch.serve.host_store import BACKENDS
 
 
-def main() -> None:
+def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen2-0.5b", choices=list(ARCH_IDS))
     ap.add_argument("--batch", type=int, default=4)
@@ -32,17 +34,18 @@ def main() -> None:
     ap.add_argument("--new", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch).reduced()
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=device).manual_seed(args.seed))
     try:
-        model = build_model(cfg)
-        params = model.init(torch.Generator(device=device).manual_seed(args.seed))
         eng = ServeEngine(model, params, device=device)
-    except (ValueError, NotImplementedError) as e:
-        raise SystemExit(f"{args.arch} is not servable by this port yet ({e}); use a "
-                         "dense or moe arch, e.g. qwen2-0.5b, deepseek-7b, olmoe-1b-7b")
+    except ValueError as e:
+        raise SystemExit(f"{args.arch} is not servable by this engine ({e}); use a "
+                         "decoder-LM arch with uniform layers, e.g. deepseek-7b, qwen2-0.5b, "
+                         "qwen2-vl-72b, olmoe-1b-7b")
     rng = np.random.default_rng(args.seed)
     prompts = rng.integers(0, cfg.vocab, (args.batch, args.ctx)).astype(np.int32)
     keys = [f"req-{i}" for i in range(args.batch)]

@@ -2,7 +2,10 @@
 
 Trains the REDUCED variant of an arch (random weights from ``--seed``, the
 synthetic data pipeline), as the JAX driver does, and checks that the loss
-falls.  ``--checkpoint`` writes the train state in the reference's layout,
+falls.  The audio family gets the reference's stub of encoder features (the
+same normal [batch, encoder_seq, d_model] draw from ``--seed`` in every
+batch); the vlm family exits, as the reference's launcher does (its frontend
+is a stub).  ``--checkpoint`` writes the train state in the reference's layout,
 which ``repro.train.checkpoint.restore_checkpoint`` reads too.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b --steps 100
@@ -24,6 +27,18 @@ from repro_torch.train.loop import train_loop
 from repro_torch.train.optimizer import AdamWConfig
 
 
+def with_encoder_feats(cfg, it, batch: int, seed: int, device="cpu"):
+    """The reference's stub of encoder features for the audio family: the
+    same normal [batch, encoder_seq, d_model] draw from ``seed`` (a
+    generator on ``device``) added to every batch of ``it``; the other
+    families' batches pass through."""
+    if cfg.family != "audio":
+        return it
+    feats = torch.randn((batch, cfg.encdec.encoder_seq, cfg.d_model), device=device,
+                        generator=torch.Generator(device=device).manual_seed(seed))
+    return (dict(b, encoder_feats=feats) for b in it)
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen2-0.5b", choices=list(ARCH_IDS))
@@ -39,8 +54,11 @@ def main(argv=None) -> None:
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch).reduced()
-    model = build_model(cfg)         # NotImplementedError for families not ported yet
+    model = build_model(cfg)
+    if cfg.family == "vlm":
+        raise SystemExit("use the dry-run for VLM training shapes (stub frontend)")
     dc = DataConfig(vocab=cfg.vocab, seq_len=args.seq, batch=args.batch, seed=args.seed)
+    it = with_encoder_feats(cfg, data_iterator(dc), args.batch, args.seed)
     opt = AdamWConfig(lr=args.lr, warmup_steps=min(20, args.steps // 5 + 1),
                       total_steps=args.steps)
 
@@ -48,7 +66,7 @@ def main(argv=None) -> None:
         print(f"step {m['step']:5d} loss {m['loss']:.4f} gnorm {m['grad_norm']:.3f} "
               f"lr {m['lr']:.2e} wall {m['wall_s']:.1f}s")
 
-    state, history = train_loop(model, data_iterator(dc), steps=args.steps, opt_cfg=opt,
+    state, history = train_loop(model, it, steps=args.steps, opt_cfg=opt,
                                 gen=torch.Generator(device=device).manual_seed(args.seed),
                                 callback=log, device=device)
     if not history[-1]["loss"] < history[0]["loss"]:

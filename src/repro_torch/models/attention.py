@@ -1,7 +1,8 @@
-"""GQA attention: full-context (train / prefill, query-chunked for long
-sequences) and decode (one token against a rolling KV cache).
+"""GQA attention: full-context (train / prefill / encoder, query-chunked for
+long sequences), decode (one token against a rolling KV cache) and
+cross-attention (whisper: K/V from the encoder output).
 
-Counterpart of the dense parts of ``repro.models.attention``.  The paged
+Counterpart of ``repro.models.attention``.  The paged
 decode kernel in ``repro_torch/kernels/decode_attention`` computes the same
 math over paged pools and is a standalone op: the reference does not call it
 from ``attention_decode`` either.
@@ -23,7 +24,9 @@ Q_CHUNK = 512
 NEG_INF = -1e30
 
 
-def init_attention(cfg: ArchConfig, gen: torch.Generator) -> dict:
+def init_attention(cfg: ArchConfig, gen: torch.Generator, *, cross: bool = False) -> dict:
+    """Projection weights; a cross-attention block (``cross=True``) has the
+    same params as a self-attention one, as in the reference."""
     D, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     dev = gen.device
     s = 1.0 / math.sqrt(D)
@@ -40,18 +43,22 @@ def init_attention(cfg: ArchConfig, gen: torch.Generator) -> dict:
     return p
 
 
-def _project_qkv(cfg: ArchConfig, p: dict, x: torch.Tensor):
+def _project_qkv(cfg: ArchConfig, p: dict, x: torch.Tensor, kv_x: torch.Tensor | None = None):
+    """Q from ``x``; K and V from ``kv_x`` (cross-attention) or ``x``."""
     B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     cd = x.dtype
+    src = x if kv_x is None else kv_x
+    Skv = src.shape[1]
     q = x @ p["wq"].to(cd)
-    k = x @ p["wk"].to(cd)
-    v = x @ p["wv"].to(cd)
+    k = src @ p["wk"].to(cd)
+    v = src @ p["wv"].to(cd)
     if cfg.qkv_bias:
         q = q + p["bq"].to(cd)
         k = k + p["bk"].to(cd)
         v = v + p["bv"].to(cd)
-    return q.reshape(B, S, KV, H // KV, hd), k.reshape(B, S, KV, hd), v.reshape(B, S, KV, hd)
+    return (q.reshape(B, S, KV, H // KV, hd), k.reshape(B, Skv, KV, hd),
+            v.reshape(B, Skv, KV, hd))
 
 
 def _scores(q: torch.Tensor, k: torch.Tensor, head_dim: int, cap: float | None):
@@ -77,26 +84,28 @@ def _attn_scores_block(q, k, v, q_pos, k_pos, *, head_dim, causal, window, cap):
 
 
 def attention_ctx(cfg: ArchConfig, p: dict, x: torch.Tensor, *, rope, causal: bool = True,
-                  window: int | None = None, q_chunk: int = Q_CHUNK,
-                  return_kv: bool = False):
-    """Full-context attention (train / prefill).  Sequences longer than
+                  window: int | None = None, kv_x: torch.Tensor | None = None,
+                  q_chunk: int = Q_CHUNK, return_kv: bool = False):
+    """Full-context attention (train / prefill / encoder / cross).  With
+    ``kv_x`` (cross-attention) K and V come from it.  Sequences longer than
     ``CHUNK_THRESHOLD`` run in query chunks of ``q_chunk`` (a loop takes the
     place of the reference's ``lax.scan``)."""
     B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q, k, v = _project_qkv(cfg, p, x)
+    q, k, v = _project_qkv(cfg, p, x, kv_x)
     if rope is not None:
         cos, sin = rope
         q = apply_rotary(q.reshape(B, S, H, hd), cos, sin).reshape(B, S, KV, H // KV, hd)
         k = apply_rotary(k, cos, sin)
-    pos = torch.arange(S, dtype=torch.int32, device=x.device)
+    q_pos = torch.arange(S, dtype=torch.int32, device=x.device)
+    k_pos = torch.arange(k.shape[1], dtype=torch.int32, device=x.device)
     kw = dict(head_dim=hd, causal=causal, window=window, cap=cfg.attn_softcap)
 
     if S <= CHUNK_THRESHOLD or S % q_chunk != 0:
-        out = _attn_scores_block(q, k, v, pos, pos, **kw)
+        out = _attn_scores_block(q, k, v, q_pos, k_pos, **kw)
     else:
-        out = torch.cat([_attn_scores_block(q[:, c:c + q_chunk], k, v, pos[c:c + q_chunk],
-                                            pos, **kw)
+        out = torch.cat([_attn_scores_block(q[:, c:c + q_chunk], k, v, q_pos[c:c + q_chunk],
+                                            k_pos, **kw)
                          for c in range(0, S, q_chunk)], dim=1)
 
     out = out.reshape(B, S, H * hd) @ p["wo"].to(x.dtype)

@@ -1,4 +1,5 @@
-"""Shared neural-net layers: norms, rotary embeddings, gated MLPs, embeddings.
+"""Shared neural-net layers: norms, rotary embeddings (RoPE / M-RoPE /
+sinusoidal), gated MLPs, embeddings.
 
 Counterpart of ``repro.models.layers``: params are nested dicts of tensors
 and every function is a plain function on tensors.  Matmul weights may be
@@ -9,6 +10,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -38,12 +40,30 @@ def apply_norm(cfg: ArchConfig, p: dict, x: torch.Tensor, eps: float = 1e-6) -> 
 
 
 # ------------------------------------------------------------- rotaries ----
+def _inv_freq(half: int, theta: float, device) -> torch.Tensor:
+    exponent = torch.arange(0, half, dtype=torch.float32, device=device) / half
+    return 1.0 / (theta ** exponent)
+
+
 def rope_angles(positions: torch.Tensor, head_dim: int, theta: float):
     """positions [..., S] -> cos/sin [..., S, head_dim/2] (float32)."""
+    ang = positions.float()[..., None] * _inv_freq(head_dim // 2, theta, positions.device)
+    return torch.cos(ang), torch.sin(ang)
+
+
+def mrope_angles(positions: torch.Tensor, head_dim: int, theta: float,
+                 sections: tuple[int, ...]):
+    """M-RoPE (Qwen2-VL): positions [3, B, S] (t/h/w) -> cos/sin [B, S,
+    head_dim/2] (float32).  The frequency bands are split into ``sections``
+    (sum = head_dim/2), each rotated by its own position stream; for text
+    tokens the three streams coincide and this is plain RoPE."""
     half = head_dim // 2
-    exponent = torch.arange(0, half, dtype=torch.float32, device=positions.device) / half
-    inv_freq = 1.0 / (theta ** exponent)
-    ang = positions.float()[..., None] * inv_freq
+    if sum(sections) != half:
+        raise ValueError(f"M-RoPE sections {sections} do not sum to head_dim/2 = {half}")
+    pos = positions.float()                                          # [3, B, S]
+    pos_per_freq = torch.cat([pos[i, ..., None].expand(*pos.shape[1:], s)
+                              for i, s in enumerate(sections)], dim=-1)   # [B, S, half]
+    ang = pos_per_freq * _inv_freq(half, theta, positions.device)
     return torch.cos(ang), torch.sin(ang)
 
 
@@ -55,6 +75,16 @@ def apply_rotary(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch
     c = cos[..., None, :].to(x.dtype)
     s = sin[..., None, :].to(x.dtype)
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+
+
+def sinusoidal_embedding(seq: int, d: int) -> torch.Tensor:
+    """Whisper-style fixed sinusoidal positional embedding [seq, d], made in
+    float64 with numpy and rounded to float32, as the reference makes it."""
+    half = d // 2
+    inv = np.exp(-np.log(10000.0) / (half - 1) * np.arange(half))
+    ang = np.arange(seq)[:, None] * inv[None, :]
+    emb = np.concatenate([np.sin(ang), np.cos(ang)], axis=1)
+    return torch.from_numpy(emb.astype(np.float32))
 
 
 # ----------------------------------------------------------------- MLPs ----

@@ -1,13 +1,15 @@
-"""Model assembly for the dense and MoE decoder-only families.
+"""Model assembly for every family of the configs: the decoder-only LMs
+(dense / moe / vlm), RWKV6 (ssm), Zamba2 (hybrid) and Whisper (audio).
 
-Counterpart of ``repro.models.transformer._build_decoder_lm`` for
-``family in ("dense", "moe")``.  Params are a nested dict of tensors;
-``blocks`` is a list with one dict per layer, and a Python loop over it takes
-the place of the reference's ``lax.scan`` over stacked layers.  A block of an
-MoE config holds ``"moe"`` (``models.moe.init_moe``) in place of ``"mlp"``.
-Matmul weights are held in the compute dtype (the reference casts them to it
-before every product); norm params and the MoE router stay float32, as the
-reference routes in float32 from its float32 params.
+Counterpart of ``repro.models.transformer``.  Params are a nested dict of
+tensors.  Each stack of layers that the reference scans over (``blocks``,
+Zamba2's ``supers``, Whisper's ``enc_blocks`` and ``dec_blocks``) is a list
+with one dict per layer, and a Python loop over it takes the place of the
+reference's ``lax.scan``.  A block of an MoE config holds ``"moe"``
+(``models.moe.init_moe``) in place of ``"mlp"``.  For serving, matmul
+weights are held in the compute dtype (the reference casts them to it before
+every product); the leaves the reference reads through
+``.astype(float32)`` stay float32 (``to_compute_dtype``).
 
 * ``init(gen, masters=False)``: random weights with the reference's
   distributions.  Serving's default casts each block to the compute dtype
@@ -16,21 +18,38 @@ reference routes in float32 from its float32 params.
   weights, cast per step by ``train.loop.cast_params_for_compute``).
 * ``forward(params, batch, want_cache=False, remat=True)`` -> (logits, aux,
   caches); ``aux`` is the router aux loss summed over layers and divided by
-  the number of scan steps, as the reference returns it (0 for dense
-  configs); with ``want_cache`` the caches are (k, v), each
-  [L, B, S, KV, hd].  With grad enabled, ``remat`` and no cache, each layer
-  runs under ``torch.utils.checkpoint`` (recomputed in the backward, as the
-  reference's ``jax.checkpoint`` does); values do not change.
+  the number of scan steps, as the reference returns it (0 for the other
+  families).  With grad enabled, ``remat`` and no cache, each layer (each
+  Zamba2 super-block) runs under ``torch.utils.checkpoint`` (recomputed in
+  the backward, as the reference's ``jax.checkpoint`` does); values do not
+  change.  ``batch`` holds ``tokens`` [B, S] (or a vlm's ``embeds`` [B, S,
+  D]), optionally ``positions`` ([B, S], or [3, B, S] for M-RoPE) and
+  ``labels``, and for Whisper ``encoder_feats`` [B, encoder_seq, D].
+  With ``want_cache`` the caches are, by family:
+
+  - decoder LMs: (k, v), each [L, B, S, KV, hd];
+  - rwkv: the decode states, one dict per layer (``init_caches``' form);
+  - zamba: ``{"mamba": [state per layer], "kv": [(k, v) per super-block]}``;
+  - whisper: ``{"self": [(k, v) per layer], "cross": [{"k", "v"} per layer]}``,
+    the cross entries being ``init_caches``' ``"cross"`` form.
 * ``loss(params, batch, remat=True)``: next-token cross entropy in float32
   plus ``aux``, as the reference's ``Model.loss``.
 * ``decode_step(params, batch, caches)`` -> (logits, caches): ONE new token
-  (``batch = {"tokens": [B, 1], "pos": int}``) against per-layer caches,
-  updated in place; the aux loss is discarded, as in the reference.
-* ``init_caches(batch_size, capacity, device)`` -> list of per-layer caches.
+  (``batch = {"tokens": [B, 1], "pos": int}``) against per-layer caches or
+  states, updated in place; the aux loss is discarded, as in the reference.
+* ``init_caches(batch_size, capacity, device)``: decoder LMs, a list of
+  per-layer KV caches; rwkv, a list of per-layer zero states (``capacity``
+  unused); zamba, ``{"mamba": [state per layer], "attn": [KV cache per
+  super-block]}``; whisper, ``{"self": [KV cache per layer], "cross":
+  [{"k", "v"} per layer]}``, the cross K/V zeros [B, encoder_seq, KV, hd]
+  that ``decode_step`` reads as given and never writes (the caller fills
+  them from the forward's cross K/V, as in the reference).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
+import math
 from typing import Any, Callable
 
 import torch
@@ -40,15 +59,16 @@ from repro_torch.compat import torch_dtype
 from repro_torch.configs.base import ArchConfig
 from . import attention as attn
 from . import layers as L
+from . import mamba2
 from . import moe as moe_mod
+from . import rwkv6
 
-# The families of later slices of the port.
-_LATER = {
-    "vlm": "the VLM slice (M-RoPE, stubbed patch embeddings)",
-    "ssm": "the remaining-families slice (RWKV6)",
-    "hybrid": "the remaining-families slice (Zamba2 / Mamba2)",
-    "audio": "the remaining-families slice (Whisper)",
-}
+# Leaves the reference reads through ``.astype(float32)``: norm params (every
+# key starting with "ln", and these norms), the MoE router, Mamba2's A_log,
+# dt_bias, D_skip and norm_scale and RWKV6's w0 and u.  Serving keeps them
+# float32 (``to_compute_dtype``).
+F32_LEAVES = ("final_norm", "enc_norm", "dec_norm", "router", "A_log", "dt_bias", "D_skip",
+              "norm_scale", "w0", "u")
 
 
 def _ffn(cfg, p, h):
@@ -78,16 +98,20 @@ def apply_tf_block_decode(cfg, p, x, cache, pos, *, rope_fn, window):
 
 
 def make_rope(cfg: ArchConfig, positions: torch.Tensor):
-    """positions [B, S] -> (cos, sin), or None without rotary embeddings."""
+    """positions [B, S] (rope) or [3, B, S] (mrope; 2-D text positions are
+    broadcast to t = h = w) -> (cos, sin), or None without rotary
+    embeddings."""
     if cfg.rope_kind == "rope":
         return L.rope_angles(positions, cfg.head_dim, cfg.rope_theta)
-    if cfg.rope_kind == "none":
-        return None
-    raise NotImplementedError(f"rope_kind {cfg.rope_kind!r} comes with {_LATER['vlm']}")
+    if cfg.rope_kind == "mrope":
+        if positions.dim() == 2:
+            positions = positions.expand(3, *positions.shape)
+        return L.mrope_angles(positions, cfg.head_dim, cfg.rope_theta, cfg.mrope_sections)
+    return None
 
 
 def make_rope_fn(cfg: ArchConfig):
-    if cfg.rope_kind == "rope":
+    if cfg.rope_kind in ("rope", "mrope"):
         return lambda pos_b: make_rope(cfg, pos_b)
     return None
 
@@ -99,16 +123,21 @@ def layer_windows(cfg: ArchConfig) -> list[int | None]:
     return [per_unit[i % len(per_unit)] for i in range(cfg.n_layers)]
 
 
+def keeps_float32(key: str) -> bool:
+    """Whether serving keeps the leaves under ``key`` float32."""
+    return key.startswith("ln") or key in F32_LEAVES
+
+
 def to_compute_dtype(cfg: ArchConfig, params: dict) -> dict:
-    """Matmul weights, biases and the embedding to the compute dtype; norm
-    params (``ln*``, ``final_norm``) and the MoE ``router`` stay float32, so
-    routing does not round the router before choosing experts."""
+    """Matmul weights, biases, the embeddings and the other leaves the
+    reference casts before use to the compute dtype; the leaves it reads in
+    float32 (``keeps_float32``) stay float32, so routing does not round the
+    router and RWKV6's decay ``exp(-exp(w0 + lora))`` does not round ``w0``."""
     cd = torch_dtype(cfg.compute_dtype)
 
     def conv(tree, keep_f32):
         if isinstance(tree, dict):
-            return {k: conv(v, keep_f32 or k.startswith("ln") or k in ("final_norm", "router"))
-                    for k, v in tree.items()}
+            return {k: conv(v, keep_f32 or keeps_float32(k)) for k, v in tree.items()}
         if isinstance(tree, list):
             return [conv(v, keep_f32) for v in tree]
         return tree.float() if keep_f32 else tree.to(cd)
@@ -140,13 +169,26 @@ class Model:
 
 
 def build_model(cfg: ArchConfig) -> Model:
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ("dense", "moe", "vlm"):
         return _build_decoder_lm(cfg)
-    if cfg.family in _LATER:
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet; it comes with "
-            f"{_LATER[cfg.family]}")
+    if cfg.family == "ssm":
+        return _build_rwkv(cfg)
+    if cfg.family == "hybrid":
+        return _build_zamba(cfg)
+    if cfg.family == "audio":
+        return _build_whisper(cfg)
     raise ValueError(cfg.family)
+
+
+def _caster(cfg: ArchConfig, masters: bool):
+    return (lambda tree: tree) if masters else (lambda tree: to_compute_dtype(cfg, tree))
+
+
+def _run(fn, recompute: bool, *args):
+    """``fn(*args)``, under ``torch.utils.checkpoint`` when ``recompute``."""
+    if recompute:
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 def _build_decoder_lm(cfg: ArchConfig) -> Model:
@@ -159,7 +201,7 @@ def _build_decoder_lm(cfg: ArchConfig) -> Model:
         the reference's distributions: float32 with ``masters``, else cast
         to the compute dtype one block at a time."""
         dev = gen.device
-        cast = (lambda tree: tree) if masters else (lambda tree: to_compute_dtype(cfg, tree))
+        cast = _caster(cfg, masters)
 
         def block():
             p = {"ln1": L.init_norm(cfg, cfg.d_model, dev),
@@ -182,8 +224,13 @@ def _build_decoder_lm(cfg: ArchConfig) -> Model:
         w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
         return L.unembed(cfg, w, x)
 
+    def _embed_in(params, batch):
+        if "embeds" in batch:
+            return batch["embeds"].to(torch_dtype(cfg.compute_dtype))
+        return L.embed_tokens(cfg, params["embed"], batch["tokens"])
+
     def forward(params, batch, want_cache=False, remat=True):
-        x = L.embed_tokens(cfg, params["embed"], batch["tokens"])
+        x = _embed_in(params, batch)
         B, S, _ = x.shape
         positions = batch.get("positions")
         if positions is None:
@@ -221,5 +268,279 @@ def _build_decoder_lm(cfg: ArchConfig) -> Model:
                                                  rope_fn=rope_fn, window=window)
         x = L.apply_norm(cfg, params["final_norm"], x)
         return _unembed_out(params, x), caches
+
+    return Model(cfg, init, forward, decode_step, init_caches)
+
+
+# ======================================================================
+# RWKV6 (attention-free SSM)
+# ======================================================================
+def _build_rwkv(cfg: ArchConfig) -> Model:
+
+    def init(gen: torch.Generator, masters: bool = False) -> dict:
+        dev = gen.device
+        cast = _caster(cfg, masters)
+
+        def block():
+            return {"ln1": L.init_norm(cfg, cfg.d_model, dev),
+                    "ln2": L.init_norm(cfg, cfg.d_model, dev),
+                    "body": rwkv6.init_rwkv_block(cfg, gen)}
+
+        return cast({"embed": L.init_embedding(cfg, gen),
+                     "ln_in": L.init_norm(cfg, cfg.d_model, dev),
+                     "blocks": [cast(block()) for _ in range(cfg.n_layers)],
+                     "final_norm": L.init_norm(cfg, cfg.d_model, dev),
+                     "unembed": L.normal(gen, (cfg.d_model, cfg.vocab), 0.02)})
+
+    def block(x, bp, state):
+        return rwkv6.apply_rwkv_block(cfg, bp["body"], x, norms=(bp["ln1"], bp["ln2"]),
+                                      apply_norm=lambda p, h: L.apply_norm(cfg, p, h),
+                                      state=state)
+
+    def _head(params, x):
+        x = L.apply_norm(cfg, params["final_norm"], x)
+        return x @ params["unembed"].to(x.dtype)
+
+    def forward(params, batch, want_cache=False, remat=True):
+        x = L.embed_tokens(cfg, params["embed"], batch["tokens"])
+        x = L.apply_norm(cfg, params["ln_in"], x)
+        recompute = remat and not want_cache and torch.is_grad_enabled()
+        states = []
+        for bp in params["blocks"]:
+            x, st = _run(block, recompute, x, bp, None)
+            states.append(st)
+        return _head(params, x), x.new_zeros((), dtype=torch.float32), \
+            (states if want_cache else None)
+
+    def init_caches(batch_size, capacity, device):
+        return [rwkv6.rwkv_state_init(cfg, batch_size, device) for _ in range(cfg.n_layers)]
+
+    def decode_step(params, batch, states):
+        x = L.embed_tokens(cfg, params["embed"], batch["tokens"])
+        x = L.apply_norm(cfg, params["ln_in"], x)
+        for i, bp in enumerate(params["blocks"]):
+            x, states[i] = block(x, bp, states[i])
+        return _head(params, x), states
+
+    return Model(cfg, init, forward, decode_step, init_caches)
+
+
+# ======================================================================
+# Zamba2 hybrid: mamba2 backbone + ONE weight-shared attention block
+# ======================================================================
+def _build_zamba(cfg: ArchConfig) -> Model:
+    every = cfg.hybrid.attn_every
+    if cfg.n_layers % every:
+        raise ValueError(f"{cfg.name}: n_layers {cfg.n_layers} is not a multiple of "
+                         f"attn_every {every}")
+    trip = cfg.n_layers // every     # super-blocks: `every` mamba layers + the shared attention
+    rope_fn = make_rope_fn(cfg)
+
+    def init(gen: torch.Generator, masters: bool = False) -> dict:
+        """``supers`` holds the n_layers mamba layers; super-block u is
+        ``supers[u * every:(u + 1) * every]``."""
+        dev = gen.device
+        cast = _caster(cfg, masters)
+
+        def layer():
+            return {"ln": L.init_norm(cfg, cfg.d_model, dev),
+                    "body": mamba2.init_mamba_block(cfg, gen)}
+
+        return cast({"embed": L.init_embedding(cfg, gen),
+                     "supers": [cast(layer()) for _ in range(cfg.n_layers)],
+                     "shared_attn": {"ln1": L.init_norm(cfg, cfg.d_model, dev),
+                                     "attn": attn.init_attention(cfg, gen),
+                                     "ln2": L.init_norm(cfg, cfg.d_model, dev),
+                                     "mlp": L.init_mlp(cfg, gen, cfg.d_model, cfg.d_ff)},
+                     "final_norm": L.init_norm(cfg, cfg.d_model, dev),
+                     "unembed": L.normal(gen, (cfg.d_model, cfg.vocab), 0.02)})
+
+    def _shared_tail(shared, x):
+        h = L.apply_norm(cfg, shared["ln2"], x)
+        return x + L.apply_mlp(cfg, shared["mlp"], h)
+
+    def super_fwd(x, layers, shared, rope, want_cache):
+        """-> (x, mamba states or None, shared attention's (k, v) or None)."""
+        states = []
+        for lp in layers:
+            y, st = mamba2.apply_mamba_block(cfg, lp["body"], L.apply_norm(cfg, lp["ln"], x))
+            x = x + y
+            states.append(st)
+        h = L.apply_norm(cfg, shared["ln1"], x)
+        out, kv = attn.attention_ctx(cfg, shared["attn"], h, rope=rope, causal=True,
+                                     return_kv=True)
+        x = _shared_tail(shared, x + out)
+        return (x, states, kv) if want_cache else (x, None, None)
+
+    def _head(params, x):
+        x = L.apply_norm(cfg, params["final_norm"], x)
+        return x @ params["unembed"].to(x.dtype)
+
+    def forward(params, batch, want_cache=False, remat=True):
+        x = L.embed_tokens(cfg, params["embed"], batch["tokens"])
+        B, S, _ = x.shape
+        rope = make_rope(cfg, torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S))
+        recompute = remat and not want_cache and torch.is_grad_enabled()
+        mamba, kvs = [], []
+        for u in range(trip):
+            x, st, kv = _run(super_fwd, recompute, x, params["supers"][u * every:(u + 1) * every],
+                             params["shared_attn"], rope, want_cache)
+            if want_cache:
+                mamba.extend(st)
+                kvs.append(kv)
+        caches = {"mamba": mamba, "kv": kvs} if want_cache else None
+        return _head(params, x), x.new_zeros((), dtype=torch.float32), caches
+
+    def init_caches(batch_size, capacity, device):
+        return {"mamba": [mamba2.mamba_state_init(cfg, batch_size, device)
+                          for _ in range(cfg.n_layers)],
+                "attn": [attn.init_attn_cache(cfg, batch_size, capacity, device)
+                         for _ in range(trip)]}
+
+    def decode_step(params, batch, caches):
+        x = L.embed_tokens(cfg, params["embed"], batch["tokens"])
+        pos = int(batch["pos"])
+        shared = params["shared_attn"]
+        mamba, attn_c = caches["mamba"], caches["attn"]
+        for u in range(trip):
+            for i in range(u * every, (u + 1) * every):
+                lp = params["supers"][i]
+                y, mamba[i] = mamba2.apply_mamba_block(
+                    cfg, lp["body"], L.apply_norm(cfg, lp["ln"], x), mamba[i])
+                x = x + y
+            h = L.apply_norm(cfg, shared["ln1"], x)
+            out, attn_c[u] = attn.attention_decode(cfg, shared["attn"], h, attn_c[u], pos,
+                                                   rope_fn=rope_fn)
+            x = _shared_tail(shared, x + out)
+        return _head(params, x), caches
+
+    return Model(cfg, init, forward, decode_step, init_caches)
+
+
+# ======================================================================
+# Whisper (audio encoder-decoder, stubbed conv frontend)
+# ======================================================================
+# Learned decoder positions.  Whisper's real decoder caps at 448; the table
+# covers the reference's input shapes, up to 32k (its DESIGN.md §6).
+MAX_DEC_POS = 32768
+
+
+@functools.cache
+def _sinusoidal(seq: int, d: int) -> torch.Tensor:
+    return L.sinusoidal_embedding(seq, d)
+
+
+def _cross_decode(cfg: ArchConfig, p: dict, h: torch.Tensor, k: torch.Tensor,
+                  v: torch.Tensor) -> torch.Tensor:
+    """One query token against the encoder's K/V [B, S_enc, KV, hd], as the
+    reference's decode step writes it: the scores in the compute dtype,
+    divided by sqrt(hd) in float32 (the reference divides by a numpy
+    scalar, which promotes them), softmax in float32, no mask."""
+    B = h.shape[0]
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    cd = h.dtype
+    q = h @ p["wq"].to(cd)
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(cd)
+    q = q.reshape(B, 1, KV, H // KV, hd)
+    scores = torch.einsum("bckgd,bskd->bkgcs", q, k).float() / math.sqrt(hd)
+    w = torch.softmax(scores, dim=-1).to(cd)
+    out = torch.einsum("bkgcs,bskd->bckgd", w, v)
+    return out.reshape(B, 1, H * hd) @ p["wo"].to(cd)
+
+
+def _build_whisper(cfg: ArchConfig) -> Model:
+    cd = torch_dtype(cfg.compute_dtype)
+
+    def init(gen: torch.Generator, masters: bool = False) -> dict:
+        dev = gen.device
+        cast = _caster(cfg, masters)
+        D = cfg.d_model
+
+        def enc_block():
+            return {"ln1": L.init_norm(cfg, D, dev), "attn": attn.init_attention(cfg, gen),
+                    "ln2": L.init_norm(cfg, D, dev), "mlp": L.init_mlp(cfg, gen, D, cfg.d_ff)}
+
+        def dec_block():
+            return {"ln1": L.init_norm(cfg, D, dev),
+                    "self_attn": attn.init_attention(cfg, gen),
+                    "ln_x": L.init_norm(cfg, D, dev),
+                    "cross_attn": attn.init_attention(cfg, gen, cross=True),
+                    "ln2": L.init_norm(cfg, D, dev), "mlp": L.init_mlp(cfg, gen, D, cfg.d_ff)}
+
+        return cast({"enc_blocks": [cast(enc_block())
+                                    for _ in range(cfg.encdec.n_encoder_layers)],
+                     "enc_norm": L.init_norm(cfg, D, dev),
+                     "embed": L.init_embedding(cfg, gen),
+                     "dec_pos": L.normal(gen, (MAX_DEC_POS, D), 0.01),
+                     "dec_blocks": [cast(dec_block()) for _ in range(cfg.n_layers)],
+                     "dec_norm": L.init_norm(cfg, D, dev)})
+
+    def encode(params, feats):
+        x = feats.to(cd)
+        x = x + _sinusoidal(x.shape[1], cfg.d_model).to(device=x.device, dtype=cd)
+        for bp in params["enc_blocks"]:
+            h = L.apply_norm(cfg, bp["ln1"], x)
+            x = x + attn.attention_ctx(cfg, bp["attn"], h, rope=None, causal=False)
+            h = L.apply_norm(cfg, bp["ln2"], x)
+            x = x + L.apply_mlp(cfg, bp["mlp"], h)
+        return L.apply_norm(cfg, params["enc_norm"], x)
+
+    def dec_block(x, bp, enc_out, want_cache):
+        """-> (x, (self (k, v), cross (k, v)) or None)."""
+        h = L.apply_norm(cfg, bp["ln1"], x)
+        out, kv = attn.attention_ctx(cfg, bp["self_attn"], h, rope=None, causal=True,
+                                     return_kv=True)
+        x = x + out
+        h = L.apply_norm(cfg, bp["ln_x"], x)
+        out, cross_kv = attn.attention_ctx(cfg, bp["cross_attn"], h, rope=None, causal=False,
+                                           kv_x=enc_out, return_kv=True)
+        x = x + out
+        h = L.apply_norm(cfg, bp["ln2"], x)
+        x = x + L.apply_mlp(cfg, bp["mlp"], h)
+        return x, ((kv, cross_kv) if want_cache else None)
+
+    def _head(params, x):
+        x = L.apply_norm(cfg, params["dec_norm"], x)
+        return x @ params["embed"].T.to(x.dtype)
+
+    def forward(params, batch, want_cache=False, remat=True):
+        enc_out = encode(params, batch["encoder_feats"])
+        tokens = batch["tokens"]
+        S = tokens.shape[1]
+        x = L.embed_tokens(cfg, params["embed"], tokens)
+        x = x + params["dec_pos"][:S].to(x.dtype)
+        recompute = remat and not want_cache and torch.is_grad_enabled()
+        selfs, crosses = [], []
+        for bp in params["dec_blocks"]:
+            x, kvs = _run(dec_block, recompute, x, bp, enc_out, want_cache)
+            if want_cache:
+                selfs.append(kvs[0])
+                crosses.append({"k": kvs[1][0], "v": kvs[1][1]})
+        caches = {"self": selfs, "cross": crosses} if want_cache else None
+        return _head(params, x), x.new_zeros((), dtype=torch.float32), caches
+
+    def init_caches(batch_size, capacity, device):
+        shape = (batch_size, cfg.encdec.encoder_seq, cfg.n_kv_heads, cfg.head_dim)
+        return {"self": [attn.init_attn_cache(cfg, batch_size, capacity, device)
+                         for _ in range(cfg.n_layers)],
+                "cross": [{"k": torch.zeros(shape, dtype=cd, device=device),
+                           "v": torch.zeros(shape, dtype=cd, device=device)}
+                          for _ in range(cfg.n_layers)]}
+
+    def decode_step(params, batch, caches):
+        pos = int(batch["pos"])
+        x = L.embed_tokens(cfg, params["embed"], batch["tokens"])
+        x = x + params["dec_pos"][min(pos, MAX_DEC_POS - 1)].to(x.dtype)
+        selfs = caches["self"]
+        for i, (bp, cross) in enumerate(zip(params["dec_blocks"], caches["cross"])):
+            h = L.apply_norm(cfg, bp["ln1"], x)
+            out, selfs[i] = attn.attention_decode(cfg, bp["self_attn"], h, selfs[i], pos)
+            x = x + out
+            h = L.apply_norm(cfg, bp["ln_x"], x)
+            x = x + _cross_decode(cfg, bp["cross_attn"], h, cross["k"], cross["v"])
+            h = L.apply_norm(cfg, bp["ln2"], x)
+            x = x + L.apply_mlp(cfg, bp["mlp"], h)
+        return _head(params, x), caches
 
     return Model(cfg, init, forward, decode_step, init_caches)

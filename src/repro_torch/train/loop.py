@@ -23,16 +23,20 @@ def init_train_state(model: Model, gen: torch.Generator) -> dict:
 
 def cast_params_for_compute(params, dtype=torch.bfloat16):
     """The reference's compute cast: every float32 leaf with ``ndim >= 2`` to
-    ``dtype``, counted in the reference's layout, where each leaf of
-    ``blocks`` carries the stacked layer axis.  So every float32 block leaf
-    is cast (matmul weights, the MoE router, and the norm scales and QKV
-    biases too), and of the others the embedding and unembedding; only
-    ``final_norm`` stays float32.  This differs from serving's
-    ``to_compute_dtype``, which keeps norm params and the router float32.
-    ``.to`` is differentiable, so gradients land on the float32 leaves."""
+    ``dtype``, counted in the reference's layout, where each leaf of a stack
+    of layers carries the stacked layer axis.  The port holds every such
+    stack (``blocks``; Zamba2's ``supers``; Whisper's ``enc_blocks`` and
+    ``dec_blocks``) as a top-level list of per-layer dicts, so every float32
+    leaf under a top-level list is cast (matmul weights, the MoE router,
+    norm scales, biases, Mamba2's and RWKV6's 1-D leaves too), and of the
+    others those with ``ndim >= 2`` (embeddings, the unembedding, Whisper's
+    ``dec_pos``, the shared attention's matmuls); the unstacked norms and
+    biases stay float32.  This differs from serving's ``to_compute_dtype``,
+    which keeps the leaves the reference reads in float32.  ``.to`` is
+    differentiable, so gradients land on the float32 leaves."""
     def cast(p, min_ndim):
         return p.to(dtype) if p.dtype == torch.float32 and p.ndim >= min_ndim else p
-    return {k: tree_map(lambda p: cast(p, 1 if k == "blocks" else 2), v)
+    return {k: tree_map(lambda p: cast(p, 1 if isinstance(v, list) else 2), v)
             for k, v in params.items()}
 
 
@@ -44,7 +48,10 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig, cast_params: bool = True
         params = tree_map(lambda p: p.detach().requires_grad_(), state["params"])
         p = cast_params_for_compute(params) if cast_params else params
         loss = model.loss(p, batch)
-        grads = torch.autograd.grad(loss, tree_leaves(params))
+        # a leaf the loss does not use (a vlm's token embedding, when the
+        # batch gives ``embeds``) gets a zero gradient, as under jax.grad
+        grads = torch.autograd.grad(loss, tree_leaves(params), allow_unused=True,
+                                    materialize_grads=True)
         new_params, opt, metrics = adamw_update(opt_cfg, state["params"],
                                                 tree_unflatten(params, grads), state["opt"])
         metrics = dict(metrics, loss=loss.detach())

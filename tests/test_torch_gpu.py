@@ -24,6 +24,7 @@ from repro_torch.kernels.ring_all_gather import ops as ag_ops  # noqa: E402
 from repro_torch.kernels.ring_all_gather.ref import all_gather_ref  # noqa: E402
 from repro_torch.kernels.ring_all_to_all import ops as aa_ops  # noqa: E402
 from repro_torch.kernels.ring_all_to_all.ref import all_to_all_ref  # noqa: E402
+from repro_torch.launch.train import with_encoder_feats  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
 from repro_torch.serve.host_store import BACKENDS  # noqa: E402
@@ -107,6 +108,38 @@ def test_decode_attention_kernel_split_edges(cuda, dtype, tol, softcap, G, hd):
     assert da_ops.launches == before + 1
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
     assert torch.count_nonzero(out[0]) == 0 and torch.count_nonzero(out[5]) == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gather_kernel_out_of_range_entries(cuda, dtype):
+    """Entries -1, n_pool and far past it: the kernel and the plain version
+    both give zero blocks there, bit-equal everywhere (ROADMAP C-port3)."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    pool = torch.randn((4, 16, 96), generator=g, device=cuda).to(dtype)
+    tbl = torch.tensor([2, -1, 4, 0, 1000, 3], dtype=torch.int32, device=cuda)
+    out = gather_ops.gather_blocks(pool, tbl)
+    ref = paged_kv_gather_ref(pool, tbl)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+    assert torch.count_nonzero(out[[1, 2, 4]]) == 0
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("pad", [4, -1, 1000])
+def test_decode_attention_kernel_out_of_range_entries(cuda, dtype, tol, pad):
+    """Tables padded past each length with an entry outside [0, n_pool): the
+    kernel and the plain version agree, at the present tolerances."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    q = torch.randn((2, 2, 4, 64), generator=g, device=cuda).to(dtype)
+    kp = torch.randn((4, 8, 2, 64), generator=g, device=cuda).to(dtype)
+    vp = torch.randn((4, 8, 2, 64), generator=g, device=cuda).to(dtype)
+    tables = torch.tensor([[0, 1, pad, pad], [2, 3, pad, pad]], dtype=torch.int32, device=cuda)
+    lengths = torch.tensor([10, 12], dtype=torch.int32, device=cuda)
+    out = da_ops.decode_attention(q, kp, vp, tables, lengths)
+    ref = paged_decode_attention_ref(q, kp, vp, tables, lengths)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all()
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
 
 
 def test_engine_hit_equals_miss_float32(cuda, monkeypatch):
@@ -380,3 +413,80 @@ def test_training_on_card_lowers_loss(cuda):
                          device=cuda)
     assert all(np.isfinite(h["loss"]) for h in hist)
     assert hist[-1]["loss"] < hist[0]["loss"]
+
+
+# -------------------------------------------------------- the new families ----
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to(v, device) for v in tree)
+    return tree.to(device)
+
+
+def _family_batch(cfg, B, S, seed):
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (B, S)).astype(np.int32))}
+    if cfg.family == "audio":
+        batch["encoder_feats"] = torch.from_numpy(
+            rng.normal(size=(B, cfg.encdec.encoder_seq, cfg.d_model)).astype(np.float32))
+    return batch
+
+
+@pytest.mark.parametrize("arch", ["qwen2-vl-72b", "rwkv6-1.6b", "zamba2-2.7b", "whisper-tiny"])
+def test_new_family_on_card_matches_cpu(cuda, monkeypatch, arch):
+    """Reduced config in float32 (TF32 off), the same params and inputs on
+    the card and on the CPU: forward logits at 1e-4, then decode steps from
+    empty caches (Whisper's cross K/V from the forward) at 1e-4."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = dataclasses.replace(get_config(arch).reduced(), compute_dtype="float32")
+    model = build_model(cfg)
+    cpu_params = model.init(torch.Generator().manual_seed(4))
+    card_params = _to(cpu_params, cuda)
+    batch = _family_batch(cfg, 2, 16, 4)
+    want, _, want_c = model.forward(cpu_params, batch, want_cache=True)
+    got, _, got_c = model.forward(card_params, _to(batch, cuda), want_cache=True)
+    assert got.device.type == "cuda"
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+    caches = {"cpu": model.init_caches(2, 8, "cpu"), "cuda": model.init_caches(2, 8, cuda)}
+    if arch == "whisper-tiny":
+        caches["cpu"]["cross"], caches["cuda"]["cross"] = want_c["cross"], got_c["cross"]
+    toks = batch["tokens"]
+    for t in range(6):
+        want, caches["cpu"] = model.decode_step(cpu_params, {"tokens": toks[:, t:t + 1],
+                                                             "pos": t}, caches["cpu"])
+        got, caches["cuda"] = model.decode_step(card_params, {"tokens": toks[:, t:t + 1].to(cuda),
+                                                              "pos": t}, caches["cuda"])
+        torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "zamba2-2.7b", "whisper-tiny"])
+def test_new_family_trains_on_card(cuda, arch):
+    """Five steps of the reduced config (bf16 compute on float32 masters):
+    every loss finite, the last below the first."""
+    cfg = get_config(arch).reduced()
+    dc = DataConfig(vocab=cfg.vocab, seq_len=32, batch=2, seed=0)
+    it = with_encoder_feats(cfg, data_iterator(dc), 2, 0, cuda)
+    _, hist = train_loop(build_model(cfg), it, steps=5,
+                         opt_cfg=AdamWConfig(lr=3e-3, warmup_steps=1, total_steps=5),
+                         gen=torch.Generator(device=cuda).manual_seed(0), log_every=1,
+                         device=cuda)
+    assert all(np.isfinite(h["loss"]) for h in hist)
+    assert hist[-1]["loss"] < hist[0]["loss"]
+
+
+def test_vlm_engine_on_card_hit_equals_miss(cuda, monkeypatch):
+    """Reduced qwen2-vl in float32 (TF32 off): every hit backend gives the
+    miss path's tokens, and the kernel backend launches B1 twice per
+    context."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = dataclasses.replace(get_config("qwen2-vl-72b").reduced(), compute_dtype="float32")
+    model = build_model(cfg)
+    eng = ServeEngine(model, model.init(torch.Generator(device=cuda).manual_seed(0)))
+    prompts = np.random.default_rng(2).integers(0, cfg.vocab, (2, 40)).astype(np.int32)
+    miss = eng.generate(prompts, ["a", "b"], 6)
+    for backend in BACKENDS:
+        before = gather_ops.launches
+        hit = eng.generate(prompts, ["a", "b"], 6, fetch_backend=backend)
+        assert gather_ops.launches - before == (4 if backend == "kernel" else 0)
+        np.testing.assert_array_equal(hit.tokens, miss.tokens)

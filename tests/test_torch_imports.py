@@ -37,8 +37,38 @@ def test_port_imports_no_jax_and_no_reference():
                  "launch.collectives", "core.dma", "core.dma.claims", "core.dma.sim",
                  "core.dma.dispatch", "core.serving_model", "serve.workload",
                  "models.transformer", "data.pipeline", "train.tree", "train.optimizer",
-                 "train.loop", "train.checkpoint", "launch.train", "bridge"):
+                 "train.loop", "train.checkpoint", "launch.train", "bridge",
+                 "models.mamba2", "models.rwkv6", "launch.serve"):
         assert f"repro_torch.{name}" in out["imported"]
     loaded = out["loaded"]
     assert not [m for m in loaded if m == "jax" or m.startswith(("jax.", "jaxlib"))]
     assert not [m for m in loaded if m == "repro" or m.startswith("repro.")]
+
+
+NEW_FAMILIES = ("qwen2-vl-72b", "rwkv6-1.6b", "zamba2-2.7b", "whisper-tiny")
+
+
+def test_new_family_entry_points_need_a_card_or_cpu(monkeypatch):
+    """Without a card the entry points of the new families raise, unless the
+    caller asks for the CPU by name; there is no silent fallback."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, data_iterator
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import build_model
+    from repro_torch.train.loop import train_loop
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for arch in NEW_FAMILIES[1:]:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            launch_train.main(["--arch", arch, "--steps", "1"])
+        cfg = get_config(arch).reduced()
+        it = data_iterator(DataConfig(vocab=cfg.vocab, seq_len=8, batch=1))
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            train_loop(build_model(cfg), it, steps=1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        launch_serve.main(["--arch", "qwen2-vl-72b"])
+    _, hist = train_loop(build_model(get_config("rwkv6-1.6b").reduced()),
+                         data_iterator(DataConfig(vocab=512, seq_len=8, batch=1)), steps=1,
+                         device="cpu")
+    assert len(hist) == 1

@@ -76,6 +76,22 @@ def test_gather_repeated_blocks(dtype, zero_launches):
     assert gather_ops.launches == 0
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gather_out_of_range_entries_give_zero_blocks(dtype, zero_launches):
+    """An entry outside [0, n_pool) (-1, n_pool, far past it) reads nothing
+    and gives a zero block, as the CUDA kernel does; the others are the
+    Pallas kernel's blocks."""
+    pool = np.random.default_rng(11).normal(size=(4, 8, 64)).astype(np.float32)
+    pool_j, pool_t = _both(pool, dtype)
+    tbl = np.array([2, -1, 4, 0, 1000, 3], np.int32)
+    got = _np(gather_ops.gather_blocks(pool_t, torch.from_numpy(tbl)))
+    ok = (tbl >= 0) & (tbl < 4)
+    assert not np.any(got[~ok])
+    want = jax_gather_blocks(pool_j, jnp.asarray(tbl[ok]), interpret=True)
+    np.testing.assert_array_equal(got[ok], _np(want))
+    assert gather_ops.launches == 0
+
+
 @pytest.mark.parametrize("bad", [
     dict(pool=torch.zeros(4, 16), tbl=torch.zeros(2, dtype=torch.int32)),
     dict(pool=torch.zeros(4, 2, 16), tbl=torch.zeros(2, dtype=torch.int64)),
@@ -144,6 +160,20 @@ def test_decode_attention_poisoned_tail(G, hd):
     poisoned, want2 = _run_both((q, kp2, vp2, tables, lengths), "float32")
     np.testing.assert_allclose(poisoned, clean, atol=1e-6)
     np.testing.assert_allclose(poisoned, want2, atol=TOL["float32"], rtol=TOL["float32"])
+
+
+@pytest.mark.parametrize("pad", [4, -1, 1000])
+def test_decode_attention_out_of_range_entries(pad, zero_launches):
+    """A table padded past each length with an entry outside [0, n_pool):
+    the plain version reads nothing there and equals the Pallas kernel,
+    which skips blocks past the length (ROADMAP C-port3)."""
+    q, kp, vp, _, _ = _attn_case(12, 2, 2, 4, 64, 8, 4, npool=4)
+    tables = np.array([[0, 1, pad, pad], [2, 3, pad, pad]], np.int32)
+    lengths = np.array([10, 12], np.int32)
+    got, want = _run_both((q, kp, vp, tables, lengths), "float32")
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, atol=1e-6, rtol=1e-6)
+    assert da_ops.launches == 0
 
 
 def test_decode_attention_rejects_bad_operands():

@@ -201,17 +201,11 @@ def test_engine_default_backend_follows_plan(engines, served):
 
 
 def test_engine_rejects_non_decoder_family():
-    cfg = get_config("rwkv6-1.6b").reduced()
-
-    class _Model:
-        pass
-
-    m = _Model()
-    m.cfg = cfg
-    with pytest.raises(ValueError):
-        ServeEngine(m, None, device="cpu")
-    with pytest.raises(NotImplementedError):
-        build_model(cfg)
+    """The engine serves the decoder-LM families only, as the reference's."""
+    for arch in ("rwkv6-1.6b", "zamba2-2.7b", "whisper-tiny"):
+        model = build_model(get_config(arch).reduced())
+        with pytest.raises(ValueError, match="decoder-LM"):
+            ServeEngine(model, None, device="cpu")
 
 
 def test_engine_defaults_to_cuda(monkeypatch):

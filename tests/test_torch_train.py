@@ -415,5 +415,7 @@ def test_train_launcher_writes_checkpoint(tmp_path, capsys):
 
 
 def test_train_launcher_unported_family_raises():
-    with pytest.raises(NotImplementedError, match="slice"):
-        launch_train.main(["--device", "cpu", "--arch", "rwkv6-1.6b", "--steps", "2"])
+    """Every family is ported; the launcher refuses vlm training, as the
+    reference's does (its frontend is a stub)."""
+    with pytest.raises(SystemExit, match="VLM"):
+        launch_train.main(["--device", "cpu", "--arch", "qwen2-vl-72b", "--steps", "2"])
