@@ -22,7 +22,10 @@ Phases, in order; each raises on failure and nothing is caught:
    through each fetch backend.  Fetched blocks must be bit-equal to the
    saved ones, hit tokens identical across backends, the ``kernel``
    pass must launch B1 exactly 2 x batch times, and every hit must carry a
-   modeled (MI300X simulator) fetch latency > 0, a miss none.
+   modeled (MI300X simulator) fetch latency > 0, a miss none.  The prefill's
+   call ms carries the port's roofline of the same prefill (``roofline``:
+   compute and memory ms, the dominant term, the costing's FLOPs and
+   useful ratio, from ``roofline.costing`` on a (1, 1) mesh).
 5. Exactness: the same widths at 2 layers in float32 (TF32 off): every hit
    backend's tokens must equal the miss path's.
 6. Collective kernels vs their plain versions over 8 ranks emulated on the
@@ -56,7 +59,10 @@ Phases, in order; each raises on failure and nothing is caught:
     than 0.5 (the reference's ``test_training_reduces_loss``).  Logged: the
     step's call ms (median after warm-up), card busy ms and launches per
     step from ``profile_step``, tokens/s, peak memory and the step's
-    compute bound 8·N·T (6·N·T plus the recomputed forward's 2·N·T).
+    compute bound 8·N·T (6·N·T plus the recomputed forward's 2·N·T);
+    beside them ``model_flops`` (``roofline.analysis``, the reference's
+    6·N·T), ``mfu`` (model_flops / (step s x 989 TF/s)) and the port's
+    ``roofline`` of the step at its own shape, as phase 4's.
 11. Training exactness: qwen2-0.5b's widths at 2 layers in float32 (TF32
     off), one ``make_train_step(cast_params=False)`` step on the card
     against the same step on the CPU from the same state, 2 x 256 tokens:
@@ -87,10 +93,15 @@ Phases, in order; each raises on failure and nothing is caught:
 17. Each of the three at its widths cut to 2 layers in float32 (TF32 off):
     the card's forward within 1e-5 of the CPU's (of the largest logit),
     and the token-by-token decode stream within 1e-4 of the forward.
-18. One JSON line naming every ported kernel with its launches on its path
+18. The dry-run (``launch.dryrun.run_one``, no kernel runs) on fake
+    tensors of the card's type: qwen2-0.5b x train_4k (multi-pod 2x16x16,
+    512 fake ranks), prefill_32k, decode_32k and long_500k (16x16, 256;
+    long_500k is the reference's documented skip), olmoe-1b-7b x train_4k
+    (multi-pod): one ``[dryrun]`` JSON line each, ``ok`` or that skip.
+19. One JSON line naming every ported kernel with its launches on its path
     (phases 4, 8 and 13 for B1/B2, phase 7 for B3/B4; no kernel lies on
-    the training or recurrent paths).
-19. Last line: ``{"ok": true, "device": {...}}``.  A ``[phase] name s``
+    the training, recurrent or dry-run paths).
+20. Last line: ``{"ok": true, "device": {...}}``.  A ``[phase] name s``
     line follows each phase with its wall seconds.
 
 Exits non-zero without printing a result when no CUDA device is present.
@@ -112,9 +123,6 @@ import numpy as np
 import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-HBM_BYTES_PER_S = 3.35e12                    # H100 SXM HBM3
-PEAK_FLOPS = {torch.bfloat16: 989e12,        # dense tensor-core bf16
-              torch.float32: 67e12}          # f32 outside the tensor cores
 B, CTX, NEW = 4, 1024, 16                    # serving batch, context, new tokens
 BT = 16                                      # tokens per KV block
 ARCH = "qwen2-0.5b"
@@ -222,10 +230,36 @@ def profile_step(fn, reps: int = 3, cuda_only: bool = False) -> dict:
             "busy_ms_by_kind": by_kind}
 
 
+def peak_flops(dtype) -> float:
+    """The card's peak rate for ``dtype`` (the port's ``roofline.hw``)."""
+    from repro_torch.roofline import hw
+    return {torch.bfloat16: hw.PEAK_BF16_FLOPS, torch.float32: hw.PEAK_FP32_FLOPS}[dtype]
+
+
 def bound_ms(n_bytes: float, n_ops: float, dtype) -> tuple[float, str]:
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / PEAK_FLOPS[dtype] * 1e3
+    from repro_torch.roofline import hw
+    t_bytes = n_bytes / hw.HBM_BW * 1e3
+    t_ops = n_ops / peak_flops(dtype) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def roofline(dev, cfg, shape) -> dict:
+    """The port's H100 roofline of one step of ``cfg`` at ``shape`` (a
+    ``ShapeConfig``), from its costing on a (1, 1) mesh: fake tensors on the
+    card's device type, depth-differenced at 1 and 2 layers, nothing run."""
+    from repro_torch.launch.mesh import fake_world, make_local_mesh
+    from repro_torch.roofline.analysis import make_row
+    from repro_torch.roofline.costing import total_cost
+    t0 = time.perf_counter()
+    with fake_world(1):
+        mesh = make_local_mesh(device=dev)
+        total = total_cost(cfg.name, shape.name, mesh, dp_size=1, cfg=cfg, shape=shape,
+                           device=dev)["total"]
+    row = make_row(cfg.name, shape.name, "1x1", 1, total, cfg=cfg, shape=shape)
+    return {"compute_ms": row.compute_s * 1e3, "memory_ms": row.memory_s * 1e3,
+            "dominant": row.dominant, "hlo_flops": row.hlo_flops_global,
+            "hlo_bytes": total.bytes, "useful_ratio": row.useful_ratio,
+            "costing_s": time.perf_counter() - t0}
 
 
 def _randn(g, shape, dtype, dev):
@@ -404,6 +438,7 @@ def phase_serving(dev, cfg, seed: int) -> dict:
     """One serving path at full width: warm-up, then the main path with the
     kernels' counts zeroed just before and read just after, its checks, and
     its times.  Returns the path's launch counts."""
+    from repro_torch.configs.base import ShapeConfig
     from repro_torch.kernels.decode_attention import ops as da_ops
     from repro_torch.kernels.paged_kv_gather import ops as gather_ops
     from repro_torch.serve.host_store import BACKENDS
@@ -505,6 +540,9 @@ def phase_serving(dev, cfg, seed: int) -> dict:
         row = {"call_ms": call_ms(fn, reps=5, warmup=1), **profile_step(fn)}
         row["busy_share"] = row["busy_ms"] / row["call_ms"] if row["busy_ms"] else None
         step_ms[name] = row
+    # the port's roofline of the prefill beside its call time
+    step_ms["prefill"]["roofline"] = roofline(dev, cfg, ShapeConfig("serve_prefill", CTX, B,
+                                                                    "prefill"))
     n_blocks, block_bytes = eng.store.blocks_for(keys[0])
     out = {"arch": arch, "n_layers": cfg.n_layers, "dtype": cfg.compute_dtype,
            "batch": B, "ctx": CTX, "new": NEW,
@@ -858,9 +896,11 @@ def phase_train(dev, cfg, steps: int, seed: int, card: str, batch_size: int = TR
     masters) on ``batch_size`` x ``seq`` tokens a step (and Whisper's stub
     features); the router aux loss of every step is recorded by wrapping the
     model's forward.  Checks finiteness; returns the history and times."""
+    from repro_torch.configs.base import ShapeConfig
     from repro_torch.data.pipeline import DataConfig, data_iterator, synth_batch
     from repro_torch.launch.train import with_encoder_feats
     from repro_torch.models import build_model
+    from repro_torch.roofline.analysis import model_flops
     from repro_torch.train.loop import cast_params_for_compute, make_train_step, train_loop
     from repro_torch.train.optimizer import AdamWConfig, adamw_update
     model = build_model(cfg)
@@ -921,7 +961,11 @@ def phase_train(dev, cfg, steps: int, seed: int, card: str, batch_size: int = TR
     n_mm = _matmul_params(cfg, state["params"])
     enc_tokens = batch_size * cfg.encdec.encoder_seq if cfg.encdec else 0
     bound = 8 * (n_mm * tokens + _encoder_matmul_params(cfg, state["params"]) * enc_tokens) \
-        / PEAK_FLOPS[torch.bfloat16] * 1e3
+        / peak_flops(torch.bfloat16) * 1e3
+    # the port's roofline of the same step: model FLOPs (the reference's
+    # 6·N·T formula), and the costing's per-device terms on a (1, 1) mesh
+    shape = ShapeConfig("train_step", seq, batch_size, "train")
+    mf = model_flops(cfg, shape)
     out = {"arch": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
            "vocab": cfg.vocab, "params": sum(t.numel() for t in _leaves(state["params"])),
            "batch": batch_size, "seq": seq, "steps": steps, "lr": opt_cfg.lr,
@@ -934,7 +978,9 @@ def phase_train(dev, cfg, steps: int, seed: int, card: str, batch_size: int = TR
            "tokens_per_s": tokens / (step_ms / 1e3), "phase_s": time.perf_counter() - t0,
            "max_memory_allocated_bytes": peak, "loop_wall_s": wall,
            "matmul_params_N": n_mm, "compute_bound_ms_8NT_bf16": bound,
-           "bound_share": bound / step_ms, "card": card}
+           "bound_share": bound / step_ms, "model_flops": mf,
+           "mfu": mf / (step_ms / 1e3 * peak_flops(torch.bfloat16)),
+           "roofline": roofline(dev, cfg, shape), "card": card}
     log(f"[train] {json.dumps(out)}")
     del state, step_fn, batch, model
     gc.collect()
@@ -1203,6 +1249,35 @@ def phase_family_exactness(dev, cfg, seed: int) -> dict:
     return out
 
 
+# (arch, shape, multi-pod) pairs of the dry-run phase
+DRYRUN_PAIRS = (("qwen2-0.5b", "train_4k", True), ("qwen2-0.5b", "prefill_32k", False),
+                ("qwen2-0.5b", "decode_32k", False), ("qwen2-0.5b", "long_500k", False),
+                (MOE_ARCH, "train_4k", True))
+
+
+def phase_dryrun(dev) -> list:
+    """The port's dry-run (``launch.dryrun.run_one``) on fake tensors of the
+    card's device type over a fake process group of 256 ranks (512 on the
+    multi-pod mesh): one ``[dryrun]`` line per pair; each must be ``ok`` or
+    the reference's documented skip."""
+    from repro_torch.configs import get_config, get_shape
+    from repro_torch.launch.dryrun import run_one
+    from repro_torch.launch.input_specs import skip_reason
+    results = []
+    for arch, shape_id, multi_pod in DRYRUN_PAIRS:
+        res = run_one(arch, shape_id, multi_pod=multi_pod, device=dev, verbose=False)
+        row = res.to_json()
+        row.pop("memory_analysis")
+        log(f"[dryrun] {json.dumps(row)}")
+        skip = skip_reason(get_config(arch), get_shape(shape_id))
+        if not (res.status == "ok" or (res.status == "skipped" and res.reason == skip)):
+            raise AssertionError(f"dry-run {arch} x {shape_id}: {res.status} {res.reason}")
+        if res.status == "ok" and not (res.flops > 0 and res.collective_counts):
+            raise AssertionError(f"dry-run {arch} x {shape_id}: no FLOPs or no collectives")
+        results.append(row)
+    return results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA card",
@@ -1271,6 +1346,8 @@ def main() -> int:
     # 17: float32 exactness of the new families at 2 layers
     for arch, (_, _, _, _, seed) in FAMILY_RUNS.items():
         run("family_exact_" + arch, phase_family_exactness, dev, get_config(arch), seed + 2)
+    # 18: the dry-run on the production meshes
+    run("dryrun", phase_dryrun, dev)
 
     kernels = []
     for name, row, replaces in (

@@ -1,6 +1,6 @@
 """Weight bridge between the reference's params (numpy) and the port's.
 
-The input is ``jax.tree.map(np.asarray, params)`` of the JAX model: a nested
+The input is JAX's ``tree.map(np.asarray, params)`` of the JAX model: a nested
 dict whose stacks of layers carry a leading scan axis.  The reference lays
 them out by family:
 
@@ -48,7 +48,7 @@ the leaves the reference reads in float32 (``transformer.to_compute_dtype``).  T
 keeps every leaf float32, with no compute cast.  ``params_to_numpy`` and
 ``train_state_to_numpy`` restack the per-layer list into the reference's
 stacked layout, so the result has the reference's leaves, shapes and
-``jax.tree_util`` order.  This module imports
+JAX ``tree_util`` order.  This module imports
 neither JAX nor the JAX package; the caller does the ``np.asarray``.
 """
 from __future__ import annotations

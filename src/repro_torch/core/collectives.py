@@ -55,7 +55,7 @@ class RankGroup:
             raise ValueError(f"tensor on {xs.device}, ranks on {self.device}")
 
     def ppermute(self, xs: torch.Tensor, perm) -> torch.Tensor:
-        """``jax.lax.ppermute`` over the rank dim: out[dst] = xs[src] for
+        """JAX's ``lax.ppermute`` over the rank dim: out[dst] = xs[src] for
         each (src, dst) pair; ranks that receive nothing get zeros."""
         out = torch.zeros_like(xs)
         src = torch.tensor([s for s, _ in perm], device=xs.device)

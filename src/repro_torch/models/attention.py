@@ -24,6 +24,23 @@ Q_CHUNK = 512
 NEG_INF = -1e30
 
 
+class dense_attention_for_costing:
+    """Context manager: disable query chunking, as the reference's costing
+    pass does, so the port's costing traces the same attention (one
+    [*, S, S] score block) and compares with the reference term by term."""
+
+    def __enter__(self):
+        global CHUNK_THRESHOLD
+        self._old = CHUNK_THRESHOLD
+        CHUNK_THRESHOLD = 1 << 62
+        return self
+
+    def __exit__(self, *exc):
+        global CHUNK_THRESHOLD
+        CHUNK_THRESHOLD = self._old
+        return False
+
+
 def init_attention(cfg: ArchConfig, gen: torch.Generator, *, cross: bool = False) -> dict:
     """Projection weights; a cross-attention block (``cross=True``) has the
     same params as a self-attention one, as in the reference."""

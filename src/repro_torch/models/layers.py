@@ -77,14 +77,19 @@ def apply_rotary(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
 
 
-def sinusoidal_embedding(seq: int, d: int) -> torch.Tensor:
+def sinusoidal_table(seq: int, d: int) -> np.ndarray:
     """Whisper-style fixed sinusoidal positional embedding [seq, d], made in
     float64 with numpy and rounded to float32, as the reference makes it."""
     half = d // 2
     inv = np.exp(-np.log(10000.0) / (half - 1) * np.arange(half))
     ang = np.arange(seq)[:, None] * inv[None, :]
     emb = np.concatenate([np.sin(ang), np.cos(ang)], axis=1)
-    return torch.from_numpy(emb.astype(np.float32))
+    return emb.astype(np.float32)
+
+
+def sinusoidal_embedding(seq: int, d: int) -> torch.Tensor:
+    """``sinusoidal_table`` as a float32 tensor on the CPU."""
+    return torch.from_numpy(sinusoidal_table(seq, d))
 
 
 # ----------------------------------------------------------------- MLPs ----

@@ -46,7 +46,7 @@ def chunked_time_scan(step_body: Callable, carry0, seq: tuple):
 
     With grad enabled and ``T`` a multiple of ``TIME_CHUNK`` greater than
     it, each chunk of ``TIME_CHUNK`` steps runs under
-    ``torch.utils.checkpoint``, as the reference's ``jax.checkpoint`` per
+    ``torch.utils.checkpoint``, as the reference's JAX ``checkpoint`` per
     chunk: the backward keeps one carry per chunk and recomputes the steps
     inside it, instead of keeping the float32 state of every step.  Values
     and gradients are those of the flat loop.

@@ -5,8 +5,11 @@ Dispatch is gather/scatter-based: the K expert choices of every token are
 sorted by expert (a STABLE sort, as ``jnp.argsort`` is), each keeps its
 position within its expert's group, and positions at or past the capacity C
 are dropped.  Expert FFNs run as one batched product over the [E, C, D]
-capacity buffer, so the FLOPs are the active experts'.  The reference's
-``expert_sharding`` constraint (a GSPMD hint) has no counterpart here.
+capacity buffer, so the FLOPs are the active experts'.  ``expert_sharding``
+(the reference's hook, a function of a tensor) constrains the capacity
+buffer, the gated hidden and the expert outputs, where the reference does;
+the dry-run passes its ``"expert"`` activation kind, which is the identity
+as in the reference.
 
 The route / pack / combine steps are shared with ``core/latte_moe.py``.
 Traps of the translation, each handled where it arises:
@@ -22,7 +25,7 @@ Traps of the translation, each handled where it arises:
   changes from run to run; the port scatters the contributions back to
   their (token, k) slot through the permutation ``order`` and sums over k,
   which is deterministic on every device.
-* ``jax.lax.top_k`` and ``torch.topk`` may order tied probabilities
+* JAX's ``lax.top_k`` and ``torch.topk`` may order tied probabilities
   differently.  Router probabilities from random floats are tied with
   negligible probability, so the tests compare at float32 tolerances.
 """
@@ -67,7 +70,10 @@ def route(cfg: ArchConfig, router: torch.Tensor, xf: torch.Tensor):
     probs = torch.softmax(xf.float() @ router.float(), dim=-1)
     topk_p, topk_e = torch.topk(probs, K, dim=-1)
     topk_p = topk_p / topk_p.sum(-1, keepdim=True)
-    assign = torch.bincount(topk_e.reshape(-1), minlength=E).float()
+    # the reference's scatter-add of ones (exact integer counts in float32);
+    # bincount's output size depends on the data, which a fake tensor lacks
+    flat = topk_e.reshape(-1)
+    assign = probs.new_zeros(E).scatter_add(0, flat, torch.ones_like(flat, dtype=probs.dtype))
     aux = E * torch.sum(probs.mean(0) * (assign / (T * K))) * m.router_aux_weight
     return topk_p, topk_e, aux
 
@@ -94,13 +100,17 @@ def dispatch(xf: torch.Tensor, slots: dict, n_experts: int, capacity: int) -> to
     return buf[:, :capacity]
 
 
+def _unconstrained(t: torch.Tensor) -> torch.Tensor:
+    return t
+
+
 def expert_ffn(buf: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
-               wd: torch.Tensor) -> torch.Tensor:
+               wd: torch.Tensor, expert_sharding=_unconstrained) -> torch.Tensor:
     """SiLU-gated FFN of each expert over its buffer rows: [E, C, D] -> [E, C, D]."""
     cd = buf.dtype
     h = torch.bmm(buf, wg.to(cd))
     u = torch.bmm(buf, wu.to(cd))
-    return torch.bmm(F.silu(h) * u, wd.to(cd))
+    return expert_sharding(torch.bmm(expert_sharding(F.silu(h) * u), wd.to(cd)))
 
 
 def combine(y: torch.Tensor, slots: dict, topk_p: torch.Tensor) -> torch.Tensor:
@@ -116,7 +126,7 @@ def combine(y: torch.Tensor, slots: dict, topk_p: torch.Tensor) -> torch.Tensor:
     return per_choice.view(T, K, -1).sum(1)
 
 
-def apply_moe(cfg: ArchConfig, p: dict, x: torch.Tensor):
+def apply_moe(cfg: ArchConfig, p: dict, x: torch.Tensor, expert_sharding=_unconstrained):
     """x [B, S, D] -> (output [B, S, D], router aux loss scalar)."""
     m = cfg.moe
     B, S, D = x.shape
@@ -124,5 +134,6 @@ def apply_moe(cfg: ArchConfig, p: dict, x: torch.Tensor):
     xf = x.reshape(B * S, D)
     topk_p, topk_e, aux = route(cfg, p["router"], xf)
     slots = assign_slots(topk_e, m.n_experts, C)
-    y = expert_ffn(dispatch(xf, slots, m.n_experts, C), p["wg"], p["wu"], p["wd"])
+    buf = expert_sharding(dispatch(xf, slots, m.n_experts, C))
+    y = expert_ffn(buf, p["wg"], p["wu"], p["wd"], expert_sharding)
     return combine(y, slots, topk_p).reshape(B, S, D), aux

@@ -21,7 +21,7 @@ every product); the leaves the reference reads through
   the number of scan steps, as the reference returns it (0 for the other
   families).  With grad enabled, ``remat`` and no cache, each layer (each
   Zamba2 super-block) runs under ``torch.utils.checkpoint`` (recomputed in
-  the backward, as the reference's ``jax.checkpoint`` does); values do not
+  the backward, as the reference's JAX ``checkpoint`` does); values do not
   change.  ``batch`` holds ``tokens`` [B, S] (or a vlm's ``embeds`` [B, S,
   D]), optionally ``positions`` ([B, S], or [3, B, S] for M-RoPE) and
   ``labels``, and for Whisper ``encoder_feats`` [B, encoder_seq, D].
@@ -71,29 +71,37 @@ F32_LEAVES = ("final_norm", "enc_norm", "dec_norm", "router", "A_log", "dt_bias"
               "norm_scale", "w0", "u")
 
 
-def _ffn(cfg, p, h):
-    """The block's feed-forward: (output, router aux loss or None)."""
+def identity_ac(x, kind):
+    """The default activation-sharding hook: no constraint."""
+    return x
+
+
+def _ffn(cfg, p, h, ac):
+    """The block's feed-forward: (output, router aux loss or None).  The MoE
+    layer gets ``ac``'s ``"expert"`` kind as its ``expert_sharding`` hook."""
     if cfg.moe:
-        return moe_mod.apply_moe(cfg, p["moe"], h)
+        return moe_mod.apply_moe(cfg, p["moe"], h, expert_sharding=lambda t: ac(t, "expert"))
     return L.apply_mlp(cfg, p["mlp"], h), None
 
 
-def apply_tf_block(cfg, p, x, *, rope, window, want_kv=False):
-    """-> (x, aux or None, kv or None)."""
+def apply_tf_block(cfg, p, x, *, rope, window, want_kv=False, ac=identity_ac):
+    """-> (x, aux or None, kv or None).  ``ac`` constrains where the
+    reference's train block (``want_kv`` false) or prefill block does."""
     h = L.apply_norm(cfg, p["ln1"], x)
     out, kv = attn.attention_ctx(cfg, p["attn"], h, rope=rope, causal=True, window=window,
                                  return_kv=True)
-    x = x + out
-    y, aux = _ffn(cfg, p, L.apply_norm(cfg, p["ln2"], x))
-    return x + y, aux, (kv if want_kv else None)
+    x = ac(x + (out if want_kv else ac(out, "partial")), "hidden_mid")
+    y, aux = _ffn(cfg, p, L.apply_norm(cfg, p["ln2"], x), ac)
+    x = ac(x + (y if want_kv else ac(y, "partial")), "hidden")
+    return x, aux, (kv if want_kv else None)
 
 
-def apply_tf_block_decode(cfg, p, x, cache, pos, *, rope_fn, window):
+def apply_tf_block_decode(cfg, p, x, cache, pos, *, rope_fn, window, ac=identity_ac):
     h = L.apply_norm(cfg, p["ln1"], x)
     out, cache = attn.attention_decode(cfg, p["attn"], h, cache, pos, rope_fn=rope_fn,
                                        window=window)
     x = x + out
-    y, _ = _ffn(cfg, p, L.apply_norm(cfg, p["ln2"], x))
+    y, _ = _ffn(cfg, p, L.apply_norm(cfg, p["ln2"], x), ac)
     return x + y, cache
 
 
@@ -149,15 +157,15 @@ def to_compute_dtype(cfg: ArchConfig, params: dict) -> dict:
 class Model:
     cfg: ArchConfig
     init: Callable[..., Any]             # (gen, masters=False)
-    forward: Callable[..., Any]          # (params, batch, want_cache=False, remat=True)
-    decode_step: Callable[..., Any]      # (params, batch, caches)
+    forward: Callable[..., Any]          # (params, batch, want_cache=False, remat=True, ac=)
+    decode_step: Callable[..., Any]      # (params, batch, caches, ac=)
     init_caches: Callable[..., Any]      # (batch_size, capacity, device)
 
-    def loss(self, params, batch, remat=True):
+    def loss(self, params, batch, remat=True, ac=identity_ac):
         """Mean next-token cross entropy over B x (S - 1) in float32, plus
         the router aux loss.  Labels are ``tokens[:, 1:]`` unless
         ``batch["labels"]`` is given."""
-        logits, aux, _ = self.forward(params, batch, remat=remat)
+        logits, aux, _ = self.forward(params, batch, remat=remat, ac=ac)
         labels = batch.get("labels")
         if labels is None:
             labels = batch["tokens"][:, 1:]
@@ -229,8 +237,8 @@ def _build_decoder_lm(cfg: ArchConfig) -> Model:
             return batch["embeds"].to(torch_dtype(cfg.compute_dtype))
         return L.embed_tokens(cfg, params["embed"], batch["tokens"])
 
-    def forward(params, batch, want_cache=False, remat=True):
-        x = _embed_in(params, batch)
+    def forward(params, batch, want_cache=False, remat=True, ac=identity_ac):
+        x = ac(_embed_in(params, batch), "hidden")
         B, S, _ = x.shape
         positions = batch.get("positions")
         if positions is None:
@@ -242,17 +250,17 @@ def _build_decoder_lm(cfg: ArchConfig) -> Model:
         for p, window in zip(params["blocks"], windows):
             if recompute:
                 x, a, kv = checkpoint(apply_tf_block, cfg, p, x, rope=rope, window=window,
-                                      use_reentrant=False)
+                                      ac=ac, use_reentrant=False)
             else:
                 x, a, kv = apply_tf_block(cfg, p, x, rope=rope, window=window,
-                                          want_kv=want_cache)
+                                          want_kv=want_cache, ac=ac)
             if a is not None:
                 aux = aux + a
             if want_cache:
                 ks.append(kv[0])
                 vs.append(kv[1])
         x = L.apply_norm(cfg, params["final_norm"], x)
-        logits = _unembed_out(params, x)
+        logits = ac(_unembed_out(params, x), "logits")
         caches = (torch.stack(ks), torch.stack(vs)) if want_cache else None
         return logits, aux / trip, caches
 
@@ -260,14 +268,14 @@ def _build_decoder_lm(cfg: ArchConfig) -> Model:
         return [attn.init_attn_cache(cfg, batch_size, min(w, capacity) if w else capacity,
                                      device) for w in windows]
 
-    def decode_step(params, batch, caches):
+    def decode_step(params, batch, caches, ac=identity_ac):
         x = L.embed_tokens(cfg, params["embed"], batch["tokens"])   # [B, 1, D]
         pos = int(batch["pos"])
         for i, (p, window) in enumerate(zip(params["blocks"], windows)):
             x, caches[i] = apply_tf_block_decode(cfg, p, x, caches[i], pos,
-                                                 rope_fn=rope_fn, window=window)
+                                                 rope_fn=rope_fn, window=window, ac=ac)
         x = L.apply_norm(cfg, params["final_norm"], x)
-        return _unembed_out(params, x), caches
+        return ac(_unembed_out(params, x), "logits"), caches
 
     return Model(cfg, init, forward, decode_step, init_caches)
 
@@ -292,34 +300,35 @@ def _build_rwkv(cfg: ArchConfig) -> Model:
                      "final_norm": L.init_norm(cfg, cfg.d_model, dev),
                      "unembed": L.normal(gen, (cfg.d_model, cfg.vocab), 0.02)})
 
-    def block(x, bp, state):
-        return rwkv6.apply_rwkv_block(cfg, bp["body"], x, norms=(bp["ln1"], bp["ln2"]),
-                                      apply_norm=lambda p, h: L.apply_norm(cfg, p, h),
-                                      state=state)
+    def block(x, bp, state, ac):
+        x, state = rwkv6.apply_rwkv_block(cfg, bp["body"], x, norms=(bp["ln1"], bp["ln2"]),
+                                          apply_norm=lambda p, h: L.apply_norm(cfg, p, h),
+                                          state=state)
+        return ac(x, "hidden"), state
 
     def _head(params, x):
         x = L.apply_norm(cfg, params["final_norm"], x)
         return x @ params["unembed"].to(x.dtype)
 
-    def forward(params, batch, want_cache=False, remat=True):
+    def forward(params, batch, want_cache=False, remat=True, ac=identity_ac):
         x = L.embed_tokens(cfg, params["embed"], batch["tokens"])
-        x = L.apply_norm(cfg, params["ln_in"], x)
+        x = ac(L.apply_norm(cfg, params["ln_in"], x), "hidden")
         recompute = remat and not want_cache and torch.is_grad_enabled()
         states = []
         for bp in params["blocks"]:
-            x, st = _run(block, recompute, x, bp, None)
+            x, st = _run(block, recompute, x, bp, None, ac)
             states.append(st)
-        return _head(params, x), x.new_zeros((), dtype=torch.float32), \
+        return ac(_head(params, x), "logits"), x.new_zeros((), dtype=torch.float32), \
             (states if want_cache else None)
 
     def init_caches(batch_size, capacity, device):
         return [rwkv6.rwkv_state_init(cfg, batch_size, device) for _ in range(cfg.n_layers)]
 
-    def decode_step(params, batch, states):
+    def decode_step(params, batch, states, ac=identity_ac):
         x = L.embed_tokens(cfg, params["embed"], batch["tokens"])
         x = L.apply_norm(cfg, params["ln_in"], x)
         for i, bp in enumerate(params["blocks"]):
-            x, states[i] = block(x, bp, states[i])
+            x, states[i] = block(x, bp, states[i], ac)
         return _head(params, x), states
 
     return Model(cfg, init, forward, decode_step, init_caches)
@@ -359,37 +368,37 @@ def _build_zamba(cfg: ArchConfig) -> Model:
         h = L.apply_norm(cfg, shared["ln2"], x)
         return x + L.apply_mlp(cfg, shared["mlp"], h)
 
-    def super_fwd(x, layers, shared, rope, want_cache):
+    def super_fwd(x, layers, shared, rope, want_cache, ac):
         """-> (x, mamba states or None, shared attention's (k, v) or None)."""
         states = []
         for lp in layers:
             y, st = mamba2.apply_mamba_block(cfg, lp["body"], L.apply_norm(cfg, lp["ln"], x))
-            x = x + y
+            x = ac(x + y, "hidden")
             states.append(st)
         h = L.apply_norm(cfg, shared["ln1"], x)
         out, kv = attn.attention_ctx(cfg, shared["attn"], h, rope=rope, causal=True,
                                      return_kv=True)
-        x = _shared_tail(shared, x + out)
+        x = ac(_shared_tail(shared, ac(x + out, "hidden")), "hidden")
         return (x, states, kv) if want_cache else (x, None, None)
 
     def _head(params, x):
         x = L.apply_norm(cfg, params["final_norm"], x)
         return x @ params["unembed"].to(x.dtype)
 
-    def forward(params, batch, want_cache=False, remat=True):
-        x = L.embed_tokens(cfg, params["embed"], batch["tokens"])
+    def forward(params, batch, want_cache=False, remat=True, ac=identity_ac):
+        x = ac(L.embed_tokens(cfg, params["embed"], batch["tokens"]), "hidden")
         B, S, _ = x.shape
         rope = make_rope(cfg, torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S))
         recompute = remat and not want_cache and torch.is_grad_enabled()
         mamba, kvs = [], []
         for u in range(trip):
             x, st, kv = _run(super_fwd, recompute, x, params["supers"][u * every:(u + 1) * every],
-                             params["shared_attn"], rope, want_cache)
+                             params["shared_attn"], rope, want_cache, ac)
             if want_cache:
                 mamba.extend(st)
                 kvs.append(kv)
         caches = {"mamba": mamba, "kv": kvs} if want_cache else None
-        return _head(params, x), x.new_zeros((), dtype=torch.float32), caches
+        return ac(_head(params, x), "logits"), x.new_zeros((), dtype=torch.float32), caches
 
     def init_caches(batch_size, capacity, device):
         return {"mamba": [mamba2.mamba_state_init(cfg, batch_size, device)
@@ -397,7 +406,7 @@ def _build_zamba(cfg: ArchConfig) -> Model:
                 "attn": [attn.init_attn_cache(cfg, batch_size, capacity, device)
                          for _ in range(trip)]}
 
-    def decode_step(params, batch, caches):
+    def decode_step(params, batch, caches, ac=identity_ac):
         x = L.embed_tokens(cfg, params["embed"], batch["tokens"])
         pos = int(batch["pos"])
         shared = params["shared_attn"]
@@ -426,8 +435,14 @@ MAX_DEC_POS = 32768
 
 
 @functools.cache
+def _sinusoidal_table(seq: int, d: int):
+    return L.sinusoidal_table(seq, d)
+
+
 def _sinusoidal(seq: int, d: int) -> torch.Tensor:
-    return L.sinusoidal_embedding(seq, d)
+    """The encoder's positions; the cache holds the numpy table, so a tensor
+    made under one fake-tensor mode (the dry-run) is never handed out again."""
+    return torch.from_numpy(_sinusoidal_table(seq, d))
 
 
 def _cross_decode(cfg: ArchConfig, p: dict, h: torch.Tensor, k: torch.Tensor,
@@ -476,17 +491,17 @@ def _build_whisper(cfg: ArchConfig) -> Model:
                      "dec_blocks": [cast(dec_block()) for _ in range(cfg.n_layers)],
                      "dec_norm": L.init_norm(cfg, D, dev)})
 
-    def encode(params, feats):
+    def encode(params, feats, ac):
         x = feats.to(cd)
-        x = x + _sinusoidal(x.shape[1], cfg.d_model).to(device=x.device, dtype=cd)
+        x = ac(x + _sinusoidal(x.shape[1], cfg.d_model).to(device=x.device, dtype=cd), "hidden")
         for bp in params["enc_blocks"]:
             h = L.apply_norm(cfg, bp["ln1"], x)
             x = x + attn.attention_ctx(cfg, bp["attn"], h, rope=None, causal=False)
             h = L.apply_norm(cfg, bp["ln2"], x)
-            x = x + L.apply_mlp(cfg, bp["mlp"], h)
+            x = ac(x + L.apply_mlp(cfg, bp["mlp"], h), "hidden")
         return L.apply_norm(cfg, params["enc_norm"], x)
 
-    def dec_block(x, bp, enc_out, want_cache):
+    def dec_block(x, bp, enc_out, want_cache, ac):
         """-> (x, (self (k, v), cross (k, v)) or None)."""
         h = L.apply_norm(cfg, bp["ln1"], x)
         out, kv = attn.attention_ctx(cfg, bp["self_attn"], h, rope=None, causal=True,
@@ -495,30 +510,30 @@ def _build_whisper(cfg: ArchConfig) -> Model:
         h = L.apply_norm(cfg, bp["ln_x"], x)
         out, cross_kv = attn.attention_ctx(cfg, bp["cross_attn"], h, rope=None, causal=False,
                                            kv_x=enc_out, return_kv=True)
-        x = x + out
+        x = ac(x + out, "hidden")
         h = L.apply_norm(cfg, bp["ln2"], x)
-        x = x + L.apply_mlp(cfg, bp["mlp"], h)
+        x = ac(x + L.apply_mlp(cfg, bp["mlp"], h), "hidden")
         return x, ((kv, cross_kv) if want_cache else None)
 
     def _head(params, x):
         x = L.apply_norm(cfg, params["dec_norm"], x)
         return x @ params["embed"].T.to(x.dtype)
 
-    def forward(params, batch, want_cache=False, remat=True):
-        enc_out = encode(params, batch["encoder_feats"])
+    def forward(params, batch, want_cache=False, remat=True, ac=identity_ac):
+        enc_out = encode(params, batch["encoder_feats"], ac)
         tokens = batch["tokens"]
         S = tokens.shape[1]
         x = L.embed_tokens(cfg, params["embed"], tokens)
-        x = x + params["dec_pos"][:S].to(x.dtype)
+        x = ac(x + params["dec_pos"][:S].to(x.dtype), "hidden")
         recompute = remat and not want_cache and torch.is_grad_enabled()
         selfs, crosses = [], []
         for bp in params["dec_blocks"]:
-            x, kvs = _run(dec_block, recompute, x, bp, enc_out, want_cache)
+            x, kvs = _run(dec_block, recompute, x, bp, enc_out, want_cache, ac)
             if want_cache:
                 selfs.append(kvs[0])
                 crosses.append({"k": kvs[1][0], "v": kvs[1][1]})
         caches = {"self": selfs, "cross": crosses} if want_cache else None
-        return _head(params, x), x.new_zeros((), dtype=torch.float32), caches
+        return ac(_head(params, x), "logits"), x.new_zeros((), dtype=torch.float32), caches
 
     def init_caches(batch_size, capacity, device):
         shape = (batch_size, cfg.encdec.encoder_seq, cfg.n_kv_heads, cfg.head_dim)
@@ -528,7 +543,7 @@ def _build_whisper(cfg: ArchConfig) -> Model:
                            "v": torch.zeros(shape, dtype=cd, device=device)}
                           for _ in range(cfg.n_layers)]}
 
-    def decode_step(params, batch, caches):
+    def decode_step(params, batch, caches, ac=identity_ac):
         pos = int(batch["pos"])
         x = L.embed_tokens(cfg, params["embed"], batch["tokens"])
         x = x + params["dec_pos"][min(pos, MAX_DEC_POS - 1)].to(x.dtype)

@@ -1,6 +1,6 @@
 """Checkpointing: flat-key .npz with a manifest.  Counterpart of
 ``repro.train.checkpoint``, writing and reading the same file: arrays
-``leaf_0 .. leaf_{n-1}`` in ``jax.tree_util`` order (``train.tree``) and a
+``leaf_0 .. leaf_{n-1}`` in JAX's ``tree_util`` order (``train.tree``) and a
 JSON ``__manifest__`` (``n_leaves``, ``step``, ``dtypes``, ``shapes`` and a
 ``treedef`` string that neither package's restore compares).  So either
 package restores the other's checkpoint, given a tree in the reference's

@@ -10,7 +10,7 @@ from typing import Callable
 import torch
 
 from repro_torch.compat import resolve_device
-from repro_torch.models.transformer import Model
+from repro_torch.models.transformer import Model, identity_ac
 from .optimizer import AdamWConfig, adamw_update, init_opt_state
 from .tree import tree_leaves, tree_map, tree_unflatten
 
@@ -40,16 +40,18 @@ def cast_params_for_compute(params, dtype=torch.bfloat16):
             for k, v in params.items()}
 
 
-def make_train_step(model: Model, opt_cfg: AdamWConfig, cast_params: bool = True):
+def make_train_step(model: Model, opt_cfg: AdamWConfig, cast_params: bool = True,
+                    ac=identity_ac):
     """-> ``train_step(state, batch) -> (new_state, metrics)`` with metrics
     ``loss``, ``grad_norm`` and ``lr`` as 0-d tensors.  The batch's tensors
-    must be on the params' device."""
+    must be on the params' device.  ``ac`` is the models' activation-sharding
+    hook (the dry-run's)."""
     def train_step(state: dict, batch: dict):
         params = tree_map(lambda p: p.detach().requires_grad_(), state["params"])
         p = cast_params_for_compute(params) if cast_params else params
-        loss = model.loss(p, batch)
+        loss = model.loss(p, batch, ac=ac)
         # a leaf the loss does not use (a vlm's token embedding, when the
-        # batch gives ``embeds``) gets a zero gradient, as under jax.grad
+        # batch gives ``embeds``) gets a zero gradient, as under JAX's ``grad``
         grads = torch.autograd.grad(loss, tree_leaves(params), allow_unused=True,
                                     materialize_grads=True)
         new_params, opt, metrics = adamw_update(opt_cfg, state["params"],

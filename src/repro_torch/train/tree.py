@@ -1,6 +1,6 @@
 """Param trees: nested dicts, lists and tuples of tensors (or arrays).
 
-``tree_leaves`` visits leaves in ``jax.tree_util`` order (dict keys sorted,
+``tree_leaves`` visits leaves in JAX's ``tree_util`` order (dict keys sorted,
 lists and tuples in order), so a tree laid out as the reference's has its
 leaves in the reference's order.
 """
@@ -38,3 +38,14 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_map(fn, *xs) for xs in zip(tree, *rest))
     return fn(tree, *rest)
+
+
+def tree_map_with_path(fn: Callable, tree: Any, path: tuple = ()) -> Any:
+    """``fn(path, leaf)`` over the leaves of ``tree``; a dict key enters the
+    path as itself, a list or tuple index as ``"[i]"``."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, path + (k,)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map_with_path(fn, v, path + (f"[{i}]",))
+                          for i, v in enumerate(tree))
+    return fn(path, tree)
