@@ -97,11 +97,27 @@ Phases, in order; each raises on failure and nothing is caught:
     tensors of the card's type: qwen2-0.5b x train_4k (multi-pod 2x16x16,
     512 fake ranks), prefill_32k, decode_32k and long_500k (16x16, 256;
     long_500k is the reference's documented skip), olmoe-1b-7b x train_4k
-    (multi-pod): one ``[dryrun]`` JSON line each, ``ok`` or that skip.
-19. One JSON line naming every ported kernel with its launches on its path
-    (phases 4, 8 and 13 for B1/B2, phase 7 for B3/B4; no kernel lies on
-    the training, recurrent or dry-run paths).
-20. Last line: ``{"ok": true, "device": {...}}``.  A ``[phase] name s``
+    (multi-pod): one ``[dryrun]`` JSON line each, ``ok`` or that skip, and
+    no op run replicated; a ``[dryrun-summary]`` line gives qwen2's train
+    FLOPs per device with its useful ratio and olmoe's wire bytes.
+19. The twins of the benchmarks and examples that need JAX in the
+    reference (``repro_torch.benchmarks``, ``repro_torch.examples``), in
+    this process on the card, each raising on failure: the benchmark
+    harness (dispatch tables, multi-node tables, the all-gathers on 8
+    emulated ranks by B3, trace export: every claim holds), the
+    simulator's hot-path benchmark (its >= 5x floor), the roofline table
+    for phase 18's pairs on 16x16, the MoE wire comparison at olmoe-1b-7b's
+    production shape (GSPMD-transparent over latte > 10x), the quickstart,
+    every B3/B4 variant against its oracle, ``train_lm`` (300 steps, the
+    loss falling by more than 0.5, checkpoint bit-equal) and
+    ``serve_kv_cache`` (B1 on its ``kernel`` hits).  ``[twins]`` lines give
+    the ratio and the phase's B1/B3/B4 launches, in all and by twin (the
+    counts set to 0 before each).
+20. One JSON line naming every ported kernel with its launches on its path
+    (phases 4, 8 and 13 for B1/B2, phase 7 for B3/B4, and phase 19's,
+    also given alone as ``launches_in_twins``; no kernel lies on the
+    training, recurrent or dry-run paths).
+21. Last line: ``{"ok": true, "device": {...}}``.  A ``[phase] name s``
     line follows each phase with its wall seconds.
 
 Exits non-zero without printing a result when no CUDA device is present.
@@ -1263,6 +1279,7 @@ def phase_dryrun(dev) -> list:
     from repro_torch.configs import get_config, get_shape
     from repro_torch.launch.dryrun import run_one
     from repro_torch.launch.input_specs import skip_reason
+    from repro_torch.roofline.analysis import model_flops
     results = []
     for arch, shape_id, multi_pod in DRYRUN_PAIRS:
         res = run_one(arch, shape_id, multi_pod=multi_pod, device=dev, verbose=False)
@@ -1274,8 +1291,71 @@ def phase_dryrun(dev) -> list:
             raise AssertionError(f"dry-run {arch} x {shape_id}: {res.status} {res.reason}")
         if res.status == "ok" and not (res.flops > 0 and res.collective_counts):
             raise AssertionError(f"dry-run {arch} x {shape_id}: no FLOPs or no collectives")
+        if res.status == "ok" and res.replicated_ops:
+            raise AssertionError(f"dry-run {arch} x {shape_id}: ops ran replicated: "
+                                 f"{res.replicated_ops}")
         results.append(row)
+    by_pair = {(r["arch"], r["shape"]): r for r in results}
+    qwen2, olmoe = by_pair[ARCH, "train_4k"], by_pair[MOE_ARCH, "train_4k"]
+    chips = 2 * 16 * 16
+    useful = model_flops(get_config(ARCH), get_shape("train_4k")) / (qwen2["flops"] * chips)
+    log(f"[dryrun-summary] {ARCH} train_4k on {qwen2['mesh']}: {qwen2['flops']} FLOPs per "
+        f"device, useful ratio {useful}; {MOE_ARCH} train_4k on {olmoe['mesh']}: "
+        f"{sum(olmoe['wire_bytes_per_device'].values())} wire B per device "
+        f"{json.dumps(olmoe['wire_bytes_per_device'])}")
     return results
+
+
+ROOFLINE_PAIRS = [(a, s) for a, s, _ in DRYRUN_PAIRS]
+
+
+def phase_twins(dev) -> dict:
+    """Phase 19: the twins of the JAX package's benchmarks and examples
+    (``repro_torch.benchmarks``, ``repro_torch.examples``), in this process
+    on the card, each raising on failure: the benchmark harness (dispatch
+    tables, multi-node tables, the all-gathers on emulated ranks, trace
+    export; every claim must hold), the simulator's hot-path benchmark
+    (default run, its >= 5x floor; not ``--check``, whose wall budget
+    depends on the host), the roofline table for phase 18's pairs on 16x16,
+    the MoE wire comparison at the production shape (> 10x), and the four
+    examples (``train_lm`` at 300 steps).  Returns the B1/B3/B4 launches
+    the phase made; the ``[twins]`` line gives them by twin (the harness's
+    include ``tpu_collectives``' timing calls)."""
+    from repro_torch.benchmarks import latte_moe_wire, roofline_table, sim_perf
+    from repro_torch.benchmarks import run as bench_run
+    from repro_torch.examples import pallas_collectives, quickstart, serve_kv_cache, train_lm
+    from repro_torch.kernels.paged_kv_gather import ops as b1
+    from repro_torch.kernels.ring_all_gather import ops as ag
+    from repro_torch.kernels.ring_all_to_all import ops as aa
+    counters = {"paged_kv_gather": b1, "ring_all_gather": ag, "all_to_all": aa}
+    by_twin = {}
+
+    def counted(name, fn, *args, **kw):
+        for m in counters.values():
+            m.launches = 0
+        out = fn(*args, **kw)
+        by_twin[name] = {k: m.launches for k, m in counters.items() if m.launches}
+        return out
+
+    argv = ["--device", str(dev)]
+    if counted("benchmarks.run", bench_run.main, argv) != 0:
+        raise AssertionError("repro_torch.benchmarks.run: a claim is out of band")
+    report = counted("sim_perf", sim_perf.run)
+    if not report["speedup"] >= sim_perf.MIN_SPEEDUP:
+        raise AssertionError(f"sim_perf: {report['speedup']}x < {sim_perf.MIN_SPEEDUP}x")
+    rows, failures = counted("roofline_table", roofline_table.run, ROOFLINE_PAIRS, device=dev)
+    if failures or len(rows) != len(ROOFLINE_PAIRS) - 1:      # long_500k is skipped
+        raise AssertionError(f"roofline_table: {len(rows)} rows, failures {failures}")
+    log(f"[twins] latte_moe_wire ratio {counted('latte_moe_wire', latte_moe_wire.run, device=dev)}")
+    counted("quickstart", quickstart.main, argv)
+    counted("pallas_collectives", pallas_collectives.main, argv)
+    counted("train_lm", train_lm.main, ["--steps", "300"] + argv)
+    counted("serve_kv_cache", serve_kv_cache.main, argv)
+    launches = {k: sum(n.get(k, 0) for n in by_twin.values()) for k in counters}
+    log(f"[twins] launches {json.dumps(launches)} by twin {json.dumps(by_twin)}")
+    if not all(launches.values()):
+        raise AssertionError(f"the twins did not launch every kernel: {launches}")
+    return launches
 
 
 def main() -> int:
@@ -1348,6 +1428,10 @@ def main() -> int:
         run("family_exact_" + arch, phase_family_exactness, dev, get_config(arch), seed + 2)
     # 18: the dry-run on the production meshes
     run("dryrun", phase_dryrun, dev)
+    # 19: the twins of the benchmarks and examples
+    twins = run("twins", phase_twins, dev)
+    for name, n in twins.items():
+        launches[name] += n
 
     kernels = []
     for name, row, replaces in (
@@ -1362,6 +1446,7 @@ def main() -> int:
             raise AssertionError(f"the main path never launched {name}")
         entry = {"name": name, "route": "cuda", "source": SOURCES[name],
                  "replaces": replaces, "launches": launches[name],
+                 "launches_in_twins": twins.get(name, 0),
                  "on_main_path": name != "paged_decode_attention",
                  "max_abs_err": row["max_abs_err"], "ms": row["kernel_ms"],
                  "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],

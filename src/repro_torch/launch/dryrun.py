@@ -15,25 +15,53 @@ arguments' local shards.
 DTensor is not GSPMD: it lays out each op on its own, eagerly.  Where the
 two differ most, the dry-run does what GSPMD does, so that its counts can
 be held against the reference's (``tests/test_torch_roofline.py``, on a
-(2, 4) mesh: FLOPs within 3% where the heads divide the model axis):
+(2, 4) mesh: train and prefill FLOPs within 3%, wire bytes within 4x, no
+op run replicated):
 
-* ``_Reshard`` reshards where DTensor refuses an op as laid out.  A reshape
-  to 3-D (a bmm's operand) that merges dims sharded over different mesh
-  dims into its batch dim is relabelled (``_merged_shard``) rather than
-  gathered; one that would split a sharded dim unevenly, or merge into a
-  2-D strided shard, gathers the blocking mesh dims.  A gather and a logsumexp along a sharded dim
-  (the loss over a vocab split over 'model') pick and reduce per shard and
-  all-reduce the small result, where DTensor gathers the logits.  Any
-  other op DTensor cannot shard runs on replicated inputs, counted in
+* ``_Reshard`` reshards where DTensor refuses an op as laid out or plans
+  it unlike GSPMD.  A reshape to 3-D (a bmm's operand) that merges dims
+  sharded over different mesh dims, or one that splits a sharded dim, is
+  relabelled where the local shard can stay as it is
+  (``_relabelled_view``) rather than gathered; one that would split a
+  sharded dim unevenly, or merge into a 2-D strided shard, gathers the
+  blocking mesh dims.  A gather, a
+  logsumexp and a softmax along a sharded dim (the loss over a vocab split
+  over 'model', decode's scores over a cache split on its capacity) pick
+  and reduce per shard and all-reduce the small result, where DTensor
+  gathers the input.  The MoE dispatch's advanced indexing (``_index``,
+  ``_index_put``: the capacity buffer's scatter, the combine's gather, their
+  gradients) is partitioned as GSPMD partitions gathers and scatters, and
+  ``searchsorted`` reads the sorted sequence gathered, as GSPMD's sort
+  leaves it.  A row picked from a sharded dim (``_select_row``: decode's
+  ``cache[:, slot] = row``) stays on the shard that holds it, as XLA's
+  DynamicUpdateSlice does.  A matmul whose plan leaves a Partial sum
+  GSPMD avoids gathers the keys, or reduce-scatters the Partial operand
+  (``_Reshard._matmul``), and a Partial input that DTensor all-reduces for
+  a pointwise op is reduce-scattered instead (``_scattered_partials``).
+  Any other op DTensor cannot shard runs on replicated inputs, counted in
   ``replicated_ops``.  What a refused attempt recorded is dropped.
+* ``_rows_kept_matmuls``: a matmul of x [B, S, D] by w with the sequence
+  of x split over mesh dims that w is not split over keeps the rows where
+  they are (XLA's dot_general), where torch's fold into 2-D gathers them:
+  qwen2-0.5b's 14 heads do not divide 'model', its projections are not
+  split over it, and its attention splits over the query positions, as
+  GSPMD's does.  It patches the spellings ``@``, ``matmul`` and
+  ``F.linear``; an ``einsum`` would go around it.
 * ``_ReusedRedistributions``: one collective per operand and layout, as
   XLA's common-subexpression elimination leaves it.
 * ``_all_to_all_on_cpu_meshes``: a CPU mesh traces the all-to-all a CUDA
   mesh would, not the whole-dim gather gloo makes do with.
+* Attention is traced unchunked (``trace_step``).
 
-Known gaps (PERF.md): heads that do not divide the model axis (qwen2-0.5b's
-14) make attention run replicated over it, where GSPMD splits it; decode
-gathers a cache sharded on its capacity to write one row.
+Known gaps (PERF.md): the two partitioners still pick different
+collectives (DTensor reduce-scatters and all-to-alls where GSPMD
+all-reduces and gathers), so counts differ while wire bytes agree within
+4x.  Torch 2.11's DTensor plans some ops unlike 2.13's, so collective
+counts still differ by torch version: the ops handled above take one path
+on both, but an embedding lookup keeps DTensor's plan where it moves the
+table by an all-to-all (2.13) and is partitioned here where DTensor
+gathers the table (2.11), and olmoe-1b-7b's expert FFN keeps ~6% more
+FLOPs per device on 2.11.
 
 The rwkv6 / zamba2 time loops launch ~7 ops per step and layer; the dry-run
 traces their first ``time_steps`` steps (``traced_time_steps``, recorded in
@@ -53,6 +81,7 @@ import argparse
 import contextlib
 import dataclasses
 import importlib
+import itertools
 import json
 import math
 import os
@@ -62,6 +91,7 @@ import weakref
 from unittest import mock
 
 import torch
+import torch.nn.functional as F
 from torch._subclasses.fake_tensor import FakeTensorMode
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import implicit_replication
@@ -73,6 +103,7 @@ from repro_torch.configs import ARCH_IDS, INPUT_SHAPES, get_config, get_shape
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.models import build_model
 from repro_torch.models import mamba2, rwkv6
+from repro_torch.models.attention import dense_attention_for_costing
 from repro_torch.roofline.costing import LocalCostMode, _marking_sharding_propagation
 from repro_torch.roofline.wire import (CollectiveRecorder, collective_counts, on_dtensors,
                                        tensor_bytes, wire_bytes_by_kind)
@@ -175,21 +206,82 @@ def _strided(x) -> bool:
 _VIEWS = ("view", "_unsafe_view", "reshape")
 
 
-def _merged_shard(x: DTensor) -> DTensor | None:
-    """``x``, laid out strided by a reshape that merged dims sharded over
-    different mesh dims, relabelled as the merged dim sharded over those mesh
-    dims in mesh order: the same local shard, its rows in another order.  No
-    per-device size changes, so no cost does.  XLA's dot_general keeps
-    several batch dims (batch x heads), where torch's bmm merges them into
-    one; without this the merged dim would be gathered.  None where the
-    relabelled layout would not give the same local shape."""
-    placements = [Shard(p.dim) if type(p).__name__ == "_StridedShard" else p
-                  for p in x.placements]
-    local = x.to_local()
-    if _local_shape(x.shape, placements, x.device_mesh) != tuple(local.shape):
+def _n_sharded(x: DTensor) -> int:
+    return sum(isinstance(p, Shard) and x.device_mesh.size(i) > 1
+               for i, p in enumerate(x.placements))
+
+
+def _view_groups(src, dst) -> list[tuple[list[int], list[int]]] | None:
+    """The dims of a view from ``src`` to ``dst``, in groups whose sizes
+    multiply to the same number: ([src dims], [dst dims]) each."""
+    groups, j = [], 0
+    i = 0
+    while i < len(src):
+        ins, outs, pa, pb = [i], [], src[i], 1
+        i += 1
+        while pb != pa or (not outs and j < len(dst) and dst[j] == 1 and pa == 1):
+            if pb < pa and j < len(dst):
+                outs.append(j)
+                pb *= dst[j]
+                j += 1
+            elif pb > pa and i < len(src):
+                ins.append(i)
+                pa *= src[i]
+                i += 1
+            else:
+                return None
+        groups.append((ins, outs))
+    if groups:
+        groups[-1][1].extend(range(j, len(dst)))
+    return groups
+
+
+def _dense(mesh, shape, placements, local: torch.Tensor) -> DTensor:
+    """A DTensor of global ``shape`` (contiguous) whose local shard is
+    ``local``."""
+    shape = tuple(shape)
+    return DTensor.from_local(local, mesh, list(placements), run_check=False, shape=shape,
+                              stride=torch.empty(shape, device="meta").stride())
+
+
+def _relabelled_view(x: DTensor, shape) -> DTensor | None:
+    """``x`` viewed as ``shape`` with each shard moved to the dim of the
+    view that its dim becomes, so the local shard stays the same, its rows
+    in another order and no per-device size changing: a split keeps the
+    shard on the outermost dim of the split (not the tensor's last) whose
+    share holds the same rows; a merge into a 3-D view (a bmm's operand)
+    shards the merged dim over the mesh dims that sharded its parts.  XLA's
+    dot_general keeps several batch dims (batch x heads) and splits
+    [batch * kv, groups * queries] back into (groups, queries) with the
+    queries still sharded; DTensor merges or splits, then gathers (or lays
+    out a strided shard most ops cannot take).  None where no such layout
+    exists, or for a merge into fewer or more than 3 dims (a matmul's 2-D
+    fold: ``_rows_kept_matmul``)."""
+    mesh, shape = x.device_mesh, tuple(int(s) for s in shape)
+    groups = _view_groups(tuple(x.shape), shape)
+    if groups is None or math.prod(shape) != x.numel():
         return None
-    return DTensor.from_local(local, x.device_mesh, placements, run_check=False,
-                              shape=x.shape, stride=x.stride())
+    options = []
+    for i, p in enumerate(x.placements):
+        if not isinstance(p, Shard) or mesh.size(i) == 1:
+            options.append([Replicate() if isinstance(p, Shard) else p])
+            continue
+        ins, outs = next(g for g in groups if p.dim in g[0])
+        if len(ins) == 1 and len(outs) >= 2:            # a split
+            options.append([Shard(d) for d in outs if d != len(shape) - 1 and shape[d] > 1])
+        elif len(outs) == 1 and len(shape) == 3:         # a merge into a bmm operand
+            options.append([Shard(outs[0])])
+        elif len(ins) == 1 and len(outs) == 1:
+            options.append([Shard(outs[0])])
+        else:
+            return None
+    local = tuple(x.to_local().shape)
+    for placements in itertools.product(*options):
+        got = _local_shape(shape, placements, mesh)
+        if all(math.prod(local[d] for d in ins) == math.prod(got[d] for d in outs)
+               for ins, outs in groups):
+            return _dense(mesh, shape, placements, x.to_local().reshape(got))
+    return None
 
 
 class _ReusedRedistributions:
@@ -205,15 +297,23 @@ class _ReusedRedistributions:
 
     def __init__(self):
         self.memo: dict = {}
-        self.added: list = []
+        self.added: list = []       # (memo key, source placements, target placements)
 
     def mark(self) -> int:
         return len(self.added)
 
     def roll_back(self, mark: int) -> None:
-        for key in self.added[mark:]:
+        for key, _, _ in self.added[mark:]:
             self.memo.pop(key, None)
         del self.added[mark:]
+
+    def all_reduced(self, local: torch.Tensor, mark: int) -> bool:
+        """Whether the local shard ``local`` (alive since ``mark``) was
+        redistributed from a Partial sum to a replica on some mesh dim since
+        ``mark``: an all-reduce of that very tensor."""
+        return any(key[0] == id(local) and any(p.is_partial() and q.is_replicate()
+                                               for p, q in zip(src, dst))
+                   for key, src, dst in self.added[mark:])
 
     @contextlib.contextmanager
     def patched(self):
@@ -232,7 +332,8 @@ class _ReusedRedistributions:
                 return hit[1]
             out = original(local_tensor, current_spec, target_spec, *args, **kwargs)
             self.memo[key] = (weakref.ref(local_tensor), out)
-            self.added.append(key)
+            self.added.append((key, tuple(current_spec.placements),
+                               tuple(target_spec.placements)))
             return out
 
         with contextlib.ExitStack() as stack:
@@ -266,6 +367,217 @@ def _logsumexp(x: DTensor, dims, keepdim: bool = False) -> DTensor:
     return out
 
 
+def _softmax(x: DTensor, dim: int, half_to_float: bool = False) -> DTensor:
+    """softmax over a sharded dim, as GSPMD partitions it: the max and the
+    sum of exponentials all-reduced, the output sharded as ``x`` (DTensor
+    gathers the input first)."""
+    e = (x - x.amax(dim, keepdim=True)).exp()
+    return e / e.sum(dim, keepdim=True)
+
+
+def _softmax_backward(grad: DTensor, out: DTensor, dim: int, input_dtype) -> DTensor:
+    """softmax's backward, ``out * (grad - sum(grad * out, dim))``, as
+    elementwise ops and a reduction that keep the operands' shards (torch
+    2.11's DTensor gathers the scores of attention split over its queries)."""
+    return (out * (grad - (grad * out).sum(dim, keepdim=True))).to(input_dtype)
+
+
+def _select_row(x: DTensor, dim: int, index: int) -> DTensor:
+    """``x.select(dim, index)`` along a sharded dim, as XLA's DynamicSlice
+    and DynamicUpdateSlice run it: the shard holding the row gives a view
+    of it, the others zeros, and the row is a Partial sum over the mesh
+    dims sharding ``dim``, so a read of it all-reduces one row and a write
+    (decode's cache update, ``cache[:, slot] = row``) lands in the owner's
+    shard and moves nothing (``_Reshard`` copies a written value into it
+    whole).  DTensor gathers the whole dim first."""
+    mesh = x.device_mesh
+    index %= x.shape[dim]
+    start, n = _rows_of(x.shape[dim], x.placements, mesh, dim)
+    local = x.to_local()
+    row = (local.select(dim, index - start) if start <= index < start + n
+           else local.new_zeros(local.shape[:dim] + local.shape[dim + 1:]))
+    placements = [Partial() if isinstance(p, Shard) and p.dim == dim else
+                  Shard(p.dim - (p.dim > dim)) if isinstance(p, Shard) else p
+                  for p in x.placements]
+    return _dense(mesh, x.shape[:dim] + x.shape[dim + 1:], placements, row)
+
+
+def _as_dtensor(t, mesh) -> DTensor:
+    return t if isinstance(t, DTensor) else DTensor.from_local(
+        t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+
+
+def _redistribute(x: DTensor, placements) -> DTensor:
+    """``x.redistribute`` on the local shard, outside autograd: these
+    handlers run below it, and torch 2.11's ``Redistribute`` function
+    detaches its output in place where grad is off (a backward pass), which
+    DTensor has no strategy for."""
+    from torch.distributed.tensor import _redistribute as redistribution
+    from torch.distributed.tensor._dtensor_spec import DTensorSpec
+    target = DTensorSpec(x.device_mesh, tuple(placements), tensor_meta=x._spec.tensor_meta)
+    local = redistribution.redistribute_local_tensor(x._local_tensor, x._spec, target)
+    return DTensor.from_local(local, x.device_mesh, list(placements), run_check=False,
+                              shape=x.shape, stride=x.stride())
+
+
+def _to(x: DTensor, placements) -> DTensor:
+    """``x.redistribute``, which also turns Replicate into a Partial sum
+    (the value on the mesh dim's first rank, zeros on the others)."""
+    placements, mesh = list(placements), x.device_mesh
+    if list(x.placements) == placements:
+        return x
+    partial = [m for m, (p, q) in enumerate(zip(x.placements, placements))
+               if p.is_replicate() and isinstance(q, Partial)]
+    first = [Replicate() if m in partial else q for m, q in enumerate(placements)]
+    y = x if list(x.placements) == first else _redistribute(x, first)
+    if not partial:
+        return y
+    local = y.to_local()
+    if any(mesh.get_coordinate()[m] != 0 for m in partial):
+        local = torch.zeros_like(local)
+    return DTensor.from_local(local, mesh, placements, run_check=False, shape=x.shape,
+                              stride=x.stride())
+
+
+
+
+def _index_layout(x: DTensor, indices) -> tuple | None:
+    """The integer index tensors of an advanced index over the leading dims
+    of ``x`` as DTensors of one shape and layout (a mesh dim they do not
+    all share, or a Partial one, replicates), with that layout; None for
+    any other kind of index."""
+    if not indices or any(i is None for i in indices):
+        return None
+    mesh = x.device_mesh
+    idx = [_as_dtensor(i, mesh) for i in indices]
+    if idx[0].is_floating_point() or idx[0].dtype == torch.bool or \
+            len({(tuple(i.shape), i.dtype) for i in idx}) != 1:
+        return None
+    layout = []
+    for m in range(mesh.ndim):
+        ps = {i.placements[m] for i in idx}
+        p = ps.pop() if len(ps) == 1 else Replicate()
+        layout.append(Replicate() if isinstance(p, Partial) else p)
+    return [_to(i, layout) for i in idx], layout
+
+
+def _local_rows(x: DTensor, idx: list) -> tuple[list, torch.Tensor | None]:
+    """This rank's rows for each index (offset into its shard of an indexed
+    dim split over the mesh, clamped) and where they fall in its shard
+    (None where no indexed dim is split)."""
+    rows, inside = [], None
+    for d, i in enumerate(idx):
+        r = i.to_local()
+        if d in _split_dims(x):
+            start, n = _rows_of(x.shape[d], x.placements, x.device_mesh, d)
+            r = r - start
+            here = (r >= 0) & (r < n)
+            inside = here if inside is None else inside & here
+            r = r.clamp(0, max(n - 1, 0))
+        rows.append(r)
+    return rows, inside
+
+
+def _index(x: DTensor, indices) -> DTensor | None:
+    """``x[i0, i1, ...]`` over the leading dims, as GSPMD partitions a
+    gather: a dim split over a mesh dim is picked from per shard (zeros
+    outside its rows) and the result is a Partial sum there; a trailing
+    dim's shard carries over; an index's shard splits the result.  Where
+    both are sharded over one mesh dim, the index is gathered."""
+    got = _index_layout(x, indices)
+    if got is None:
+        return None
+    idx, ipl = got
+    k, nd = len(idx), idx[0].ndim
+    out = []
+    for m, p in enumerate(x.placements):
+        if isinstance(p, (Shard, Partial)) and x.device_mesh.size(m) > 1:
+            ipl[m] = Replicate()
+            out.append(Partial() if isinstance(p, Shard) and p.dim < k else
+                       Shard(p.dim - k + nd) if isinstance(p, Shard) else p)
+        else:
+            out.append(ipl[m])
+    idx = [_to(i, ipl) for i in idx]
+    rows, inside = _local_rows(x, idx)
+    picked = x.to_local()[tuple(rows)]
+    if inside is not None:
+        inside = inside.reshape(inside.shape + (1,) * (picked.ndim - nd))
+        picked = torch.where(inside, picked, torch.zeros_like(picked))
+    return _dense(x.device_mesh, tuple(idx[0].shape) + tuple(x.shape[k:]), out, picked)
+
+
+def _index_put(x: DTensor, indices, values, accumulate: bool = False,
+               inplace: bool = False) -> DTensor | None:
+    """``x[i0, i1, ...] = values`` (``+=`` with ``accumulate``) as GSPMD
+    partitions a scatter: into a dim split over a mesh dim, each shard
+    writes the rows that fall in it (accumulate only; a set there returns
+    None); along a trailing dim, operand and values keep their shard, and a
+    replicated operand takes the values' (a local cut); a sum of sharded
+    or Partial values into a replicated operand is a Partial sum; a set of
+    them is gathered first.  In place, ``x`` takes the write's layout, as
+    GSPMD's scatter returns a buffer laid out as its operands."""
+    got = _index_layout(x, indices)
+    if got is None:
+        return None
+    mesh = x.device_mesh
+    idx, ipl = got
+    k, nd = len(idx), idx[0].ndim
+    values = _as_dtensor(values, mesh)
+    if values.ndim != nd + x.ndim - k:
+        return None
+    xpl, vpl = list(x.placements), list(values.placements)
+    for m in range(mesh.ndim):
+        p, q, v = xpl[m], ipl[m], vpl[m]
+        if mesh.size(m) == 1:
+            continue
+        if isinstance(p, Partial) and not accumulate:
+            p = xpl[m] = Replicate()
+        if isinstance(p, Shard) and p.dim < k:
+            if not accumulate:
+                return None
+            ipl[m], vpl[m] = Replicate(), Replicate()
+        elif isinstance(p, Shard):
+            ipl[m], vpl[m] = Replicate(), Shard(p.dim - k + nd)
+        elif isinstance(v, Shard) and v.dim >= nd and (q.is_replicate() or not accumulate):
+            ipl[m], xpl[m] = Replicate(), Shard(v.dim - nd + k)
+        elif accumulate and isinstance(p, Partial) and not isinstance(v, Shard):
+            ipl[m] = Replicate()
+            vpl[m] = Partial()
+        elif accumulate and ((isinstance(v, Shard) and v.dim < nd) or
+                             (isinstance(q, Shard) and not isinstance(v, Partial))):
+            xpl[m] = Partial()
+            ipl[m] = vpl[m] = v if isinstance(v, Shard) and v.dim < nd else q
+        else:
+            ipl[m], vpl[m] = Replicate(), Replicate()
+    target = _to(x, xpl)
+    idx, values = [_to(i, ipl) for i in idx], _to(values, vpl)
+    rows, inside = _local_rows(target, idx)
+    v = values.to_local()
+    if inside is not None:
+        v = v * inside.reshape(inside.shape + (1,) * (v.ndim - nd)).to(v.dtype)
+    local = target.to_local()
+    if not inplace:
+        return _dense(mesh, x.shape, xpl, local.index_put(tuple(rows), v, accumulate))
+    if target is x:
+        local.index_put_(tuple(rows), v, accumulate)
+        return x
+    x._local_tensor = local.index_put_(tuple(rows), v, accumulate)
+    x._spec = target._spec
+    return x
+
+
+def _searchsorted(seq, values, **kwargs) -> DTensor:
+    """``torch.searchsorted`` with the sorted sequence gathered (GSPMD's
+    sort has gathered it already) and the result laid out as ``values``."""
+    mesh = (seq if isinstance(seq, DTensor) else values).device_mesh
+    seq, values = _as_dtensor(seq, mesh), _as_dtensor(values, mesh)
+    seq = _to(seq, [Replicate()] * mesh.ndim)
+    values = _to(values, [Replicate() if isinstance(p, Partial) else p
+                          for p in values.placements])
+    out = torch.searchsorted(seq.to_local(), values.to_local(), **kwargs)
+    return _dense(mesh, values.shape, values.placements, out)
+
+
 class _Reshard(TorchDispatchMode):
     """Reshards where DTensor refuses an op as laid out (module docstring);
     ``replicated_ops`` counts the ops that ran on replicated inputs.  What
@@ -276,6 +588,7 @@ class _Reshard(TorchDispatchMode):
         super().__init__()
         self.rec, self.cost, self.reuse = rec, cost, reuse
         self.replicated_ops: dict[str, int] = {}
+        self.rows = weakref.WeakValueDictionary()   # id -> row of a sharded dim
 
     def _mark(self) -> tuple:
         return (len(self.rec.ops), self.cost.flops, self.cost.bytes, self.cost.n_ops,
@@ -287,19 +600,21 @@ class _Reshard(TorchDispatchMode):
         self.reuse.roll_back(mark[4])
 
     def _view(self, func, args, kwargs):
-        """A reshape whose result DTensor cannot lay out (an uneven split)
-        or lays out strided (relabelled where 3-D, ``_merged_shard``):
-        gather the input's mesh dims one by one, the one sharding the
-        innermost tensor dim first, until it can."""
+        """A reshape whose result DTensor cannot lay out (an uneven split),
+        lays out strided, or gathers: relabelled where the local shard can
+        stay as it is (``_relabelled_view``), else the input's mesh dims are
+        gathered one by one, the one sharding the innermost tensor dim
+        first, until it can."""
         x = args[0]
         order = sorted((i for i, p in enumerate(x.placements) if not p.is_replicate()),
                        key=lambda i: -getattr(x.placements[i], "dim", x.ndim))
         placements = list(x.placements)
         for i in [None] + order:
-            mark = self._mark()
+            before = self._mark()
             if i is not None:
                 placements[i] = Replicate()
             y = x.redistribute(x.device_mesh, placements) if i is not None else x
+            mark = self._mark()
             try:
                 out = func(y, *args[1:], **kwargs)
             except (RuntimeError, NotImplementedError) as e:
@@ -307,15 +622,96 @@ class _Reshard(TorchDispatchMode):
                 # take (a dim split into more shards than it has rows)
                 if not (_sharding_failure(e) or "is invalid for input of size" in str(e)):
                     raise
-                self._roll_back(mark)
-                continue
-            if not _strided(out):
+                out = None
+            if out is not None and not _strided(out) and _n_sharded(out) >= _n_sharded(y):
                 return out
-            merged = _merged_shard(out) if out.ndim == 3 else None
-            if merged is not None:
-                return merged
-            self._roll_back(mark)
+            relabelled = _relabelled_view(y, args[1])
+            if relabelled is not None:
+                self._roll_back(mark)
+                return relabelled
+            if out is not None and not _strided(out):
+                return out
+            self._roll_back(before)
         raise RuntimeError(f"{func} does not lay out even on replicated inputs")
+
+    def _scattered_partials(self, args, mark) -> list | None:
+        """Where DTensor all-reduced a Partial input of a pointwise op since
+        ``mark`` (torch 2.11's plan of an expert FFN's gated hidden, which
+        leaves every data rank with the whole FFN), the args with each
+        Partial reduce-scattered onto the input's largest free dim instead,
+        as 2.13 and GSPMD keep it split; None where nothing was."""
+        out, changed = list(args), False
+        for i, a in enumerate(args):
+            if not (isinstance(a, DTensor) and any(p.is_partial() for p in a.placements)
+                    and self.reuse.all_reduced(a._local_tensor, mark[4])):
+                continue
+            placements, taken = list(a.placements), _split_dims(a)
+            for m, p in enumerate(placements):
+                free = [d for d in range(a.ndim)
+                        if d not in taken and a.shape[d] >= a.device_mesh.size(m)]
+                if p.is_partial() and free:
+                    d = max(free, key=lambda d: a.shape[d])
+                    placements[m] = Shard(d)
+                    taken.add(d)
+            out[i], changed = _to(a, placements), True
+        return out if changed else None
+
+    def _matmul(self, func, a: DTensor, b: DTensor):
+        """A (batched) matmul as GSPMD partitions it where DTensor's output
+        is a Partial sum that GSPMD avoids: where DTensor shards a
+        contraction neither operand was sharded on, with ``a``'s rows split
+        over a mesh dim ``b`` is gathered there (attention's keys over a
+        split sequence), and with ``b``'s columns split, ``a`` is; where it
+        multiplies a Partial operand by a replicated one on every rank (torch
+        2.11's plan of an expert FFN's gradient), the Partial one is
+        reduce-scattered onto the contraction."""
+        mark = self._mark()
+        out = func(a, b)
+        fix_a, fix_b = list(a.placements), list(b.placements)
+        for m, p in enumerate(out.placements):
+            pa, pb = a.placements[m], b.placements[m]
+            if not isinstance(p, Partial) or a.device_mesh.size(m) == 1:
+                continue
+            if isinstance(pa, Partial) and pb.is_replicate() or \
+                    isinstance(pb, Partial) and pa.is_replicate():
+                # a Partial operand times a replicated one, computed whole on
+                # every rank: reduce-scatter it onto the contraction instead
+                fix_a[m], fix_b[m] = Shard(a.ndim - 1), Shard(b.ndim - 2)
+            elif isinstance(pa, Partial) or isinstance(pb, Partial):
+                continue
+            elif pa == Shard(a.ndim - 2):
+                fix_b[m] = Replicate()
+            elif pb == Shard(b.ndim - 1):
+                fix_a[m] = Replicate()
+        if fix_a == list(a.placements) and fix_b == list(b.placements):
+            return out
+        self._roll_back(mark)
+        return func(_to(a, fix_a), _to(b, fix_b))
+
+    def _index(self, func, x: DTensor, indices):
+        """An advanced index: replicated indices (the MoE dispatch's, from a
+        sort) are partitioned as GSPMD partitions a gather (``_index``);
+        sharded ones (an embedding's tokens) take DTensor's plan unless it
+        gathers ``x`` (torch 2.11 gathers the vocab-split table, 2.13 moves
+        its shard with an all-to-all)."""
+        got = _index_layout(x, indices)
+        if got is not None and all(p.is_replicate() for p in got[1]):
+            return _index(x, indices)
+        mark = self._mark()
+        local = tensor_bytes(x.to_local())
+        try:
+            out = func(x, indices)
+            if not any(op.kind == "all-gather" and op.in_bytes == local
+                       for op in self.rec.ops[mark[0]:]):
+                return out
+        except (RuntimeError, NotImplementedError) as e:
+            if not _sharding_failure(e):
+                raise
+        self._roll_back(mark)
+        out = _index(x, indices)
+        if out is None:
+            raise RuntimeError(f"{func} has no layout for these indices")
+        return out
 
     def _gather(self, func, x: DTensor, dim: int, index, **kwargs):
         """A gather along a sharded dim, as GSPMD partitions it: each shard
@@ -358,9 +754,42 @@ class _Reshard(TorchDispatchMode):
             return self._gather(func, *args, **kwargs)
         if func is torch.ops.aten.logsumexp.default and _reduces_sharded(args[0], args[1]):
             return _logsumexp(*args)
+        if func is torch.ops.aten._softmax.default and _reduces_sharded(args[0], args[1]):
+            return _softmax(*args)
+        if func is torch.ops.aten.select.int and _reduces_sharded(args[0], args[1]):
+            row = _select_row(*args)
+            self.rows[id(row)] = row
+            return row
+        if func is torch.ops.aten.copy_.default and self.rows.get(id(args[0])) is args[0]:
+            dst, src = args[0], _as_dtensor(args[1], args[0].device_mesh)
+            src = _to(src, [Replicate() if isinstance(p, Partial) else p
+                            for p in dst.placements])
+            dst.to_local().copy_(src.to_local())
+            return dst
+        name = func._overloadpacket.__name__
+        if name == "searchsorted" and func is torch.ops.aten.searchsorted.Tensor:
+            return _searchsorted(*args, **kwargs)
+        if name in ("index_put", "index_put_") and isinstance(args[0], DTensor):
+            out = _index_put(*args, **kwargs, inplace=name == "index_put_")
+            if out is not None:
+                return out
+        if func is torch.ops.aten.index.Tensor and isinstance(args[0], DTensor):
+            return self._index(func, *args)
+        if func is torch.ops.aten._softmax_backward_data.default and _split_dims(args[1]):
+            return _softmax_backward(*args)
+        if func in (torch.ops.aten.bmm.default, torch.ops.aten.mm.default) and \
+                all(isinstance(a, DTensor) for a in args):
+            return self._matmul(func, *args)
         mark = self._mark()
         try:
-            return func(*args, **kwargs)
+            out = func(*args, **kwargs)
+            if torch.Tag.pointwise not in func.tags:
+                return out
+            scattered = self._scattered_partials(args, mark)
+            if scattered is None:
+                return out
+            self._roll_back(mark)
+            return func(*scattered, **kwargs)
         except (RuntimeError, NotImplementedError) as e:
             if not _sharding_failure(e):
                 raise
@@ -373,6 +802,84 @@ class _Reshard(TorchDispatchMode):
         out = func(*args, **kwargs)
         return tree_map_only(torch.Tensor, lambda t: DTensor.from_local(
             t, mesh, [Replicate()] * mesh.ndim, run_check=False), out)
+
+
+def _keeps_rows(x, w) -> bool:
+    """Whether ``_rows_kept_matmul`` applies to ``x @ w``: x [B, S, D]
+    (B > 1, no Partial sum) has its sequence split over mesh dims that the
+    2-D ``w`` is not split over (a test on ``w``'s placements, so ``w.T``
+    gives the same answer)."""
+    if not (isinstance(x, DTensor) and isinstance(w, DTensor) and x.ndim == 3
+            and w.ndim == 2 and x.device_mesh == w.device_mesh):
+        return False
+    mesh = x.device_mesh
+    seq = [i for i, p in enumerate(x.placements)
+           if isinstance(p, Shard) and p.dim == 1 and mesh.size(i) > 1]
+    return (bool(seq) and x.shape[0] != 1 and not any(p.is_partial() for p in x.placements)
+            and not any(isinstance(w.placements[i], Shard) for i in seq))
+
+
+def _rows_kept_matmul(x, w):
+    """``x @ w`` for x [B, S, D] whose sequence dim is sharded over mesh dims
+    that ``w`` [D, N] is not sharded over, as XLA's dot_general runs it: the
+    rows stay where they are and the output is laid out as ``x`` is.
+    torch folds x into [B * S, D] for ``mm``, a strided shard that DTensor
+    gathers.  Here the fold is relabelled (the same local rows, in another
+    order, as ``_relabelled_view`` does) and DTensor lays out the ``mm`` from
+    there.  None where this does not apply."""
+    if not _keeps_rows(x, w):
+        return None
+    mesh = x.device_mesh
+    B, S, D = x.shape
+    rows = [Shard(0) if isinstance(p, Shard) and p.dim < 2 else
+            Shard(1) if isinstance(p, Shard) else p for p in x.placements]
+    local = x.to_local()
+    if _local_shape((B * S, D), rows, mesh) != (local.shape[0] * local.shape[1], local.shape[2]):
+        return None
+    x2 = _dense(mesh, (B * S, D), rows, local.reshape(-1, local.shape[2]))
+    y2 = torch.mm(x2, w)
+    N = y2.shape[1]
+    back = [x.placements[i] if isinstance(p, Shard) and p.dim == 0 else
+            Shard(2) if isinstance(p, Shard) else p for i, p in enumerate(y2.placements)]
+    shape = _local_shape((B, S, N), back, mesh)
+    y_local = y2.to_local()
+    if any(isinstance(p, Shard) and p.dim == 0 and not isinstance(q, Shard)
+           for p, q in zip(y2.placements, x.placements)) or \
+            math.prod(shape) != y_local.numel():
+        return y2.view(B, S, N)
+    return _dense(mesh, (B, S, N), back, y_local.reshape(shape))
+
+
+@contextlib.contextmanager
+def _rows_kept_matmuls():
+    """For the duration, a matmul of a 3-D tensor by a 2-D one goes through
+    ``_rows_kept_matmul`` where it applies, whichever way it is spelled:
+    ``x @ w``, ``x.matmul(w)``, ``torch.matmul(x, w)`` or
+    ``F.linear(x, w.T, b)``.  These are patched, not caught by a function
+    mode: the recomputation of a checkpointed layer in the backward runs
+    without the function modes of the forward.  An ``einsum`` goes around
+    them (the models' projections use none)."""
+    def rows_kept(original):
+        def matmul(x, w):
+            out = _rows_kept_matmul(x, w)
+            return original(x, w) if out is None else out
+        return matmul
+
+    linear = F.linear
+
+    def rows_kept_linear(x, weight, bias=None):
+        if not _keeps_rows(x, weight):
+            return linear(x, weight, bias)
+        out = _rows_kept_matmul(x, weight.t())
+        if out is None:
+            return linear(x, weight, bias)
+        return out if bias is None else out + bias
+
+    with mock.patch.object(torch.Tensor, "__matmul__", rows_kept(torch.Tensor.__matmul__)), \
+            mock.patch.object(torch.Tensor, "matmul", rows_kept(torch.Tensor.matmul)), \
+            mock.patch.object(torch, "matmul", rows_kept(torch.matmul)), \
+            mock.patch.object(F, "linear", rows_kept_linear):
+        yield
 
 
 @contextlib.contextmanager
@@ -419,6 +926,28 @@ def traced_time_steps(n: int):
     with mock.patch.object(mamba2, "chunked_time_scan", first_steps), \
             mock.patch.object(rwkv6, "chunked_time_scan", first_steps):
         yield
+
+
+@contextlib.contextmanager
+def tracing(time_steps: int | None = None):
+    """For the duration (inside ``FakeTensorMode`` and
+    ``implicit_replication``, on DTensors over a fake process group), DTensor
+    code is traced as the dry-run traces a step: yields ``(rec, cost,
+    reshard)``, the collectives recorded, the per-device costs and the
+    ``_Reshard`` mode (its ``replicated_ops``).  ``time_steps`` cuts the
+    time scans (``traced_time_steps``)."""
+    rec, cost, reuse = CollectiveRecorder(), LocalCostMode(), _ReusedRedistributions()
+    reshard = _Reshard(rec, cost, reuse)
+    with contextlib.ExitStack() as stack:
+        if time_steps is not None:
+            stack.enter_context(traced_time_steps(time_steps))
+        stack.enter_context(reuse.patched())
+        stack.enter_context(_all_to_all_on_cpu_meshes())
+        stack.enter_context(_marking_sharding_propagation())
+        stack.enter_context(_rows_kept_matmuls())
+        for mode in (rec, cost, reshard):
+            stack.enter_context(mode)
+        yield rec, cost, reshard
 
 
 def build_step(arch_id: str, shape_id: str, mesh, *, cfg: ArchConfig | None = None,
@@ -487,7 +1016,12 @@ def trace_step(arch_id: str, shape_id: str, mesh, *, cfg: ArchConfig | None = No
     loop = cfg.family in ("ssm", "hybrid")      # a time scan (decode: one step)
     steps = (None if not loop else 1 if shape.mode == "decode"
              else min(shape.seq_len, time_steps))
-    with FakeTensorMode(), implicit_replication():
+    # attention unchunked, as the costing traces it: the query chunks bound
+    # one device's [*, chunk, S] block, a memory the dry-run does not
+    # measure, and slicing global chunks out of a sequence split over
+    # 'model' (qwen2-0.5b's) would gather it where each rank's own queries
+    # are already a chunk
+    with FakeTensorMode(), implicit_replication(), dense_attention_for_costing():
         built, reason = build_step(arch_id, shape_id, mesh, cfg=cfg, shape=shape, perf=perf,
                                    device=device)
         if built is None:
@@ -495,16 +1029,7 @@ def trace_step(arch_id: str, shape_id: str, mesh, *, cfg: ArchConfig | None = No
         fn, args = built
         arg_bytes = sum(tensor_bytes(x.to_local()) for x in
                         tree_leaves(args) if isinstance(x, DTensor))
-        rec, cost, reuse = CollectiveRecorder(), LocalCostMode(), _ReusedRedistributions()
-        reshard = _Reshard(rec, cost, reuse)
-        with contextlib.ExitStack() as stack:
-            if loop:
-                stack.enter_context(traced_time_steps(time_steps))
-            stack.enter_context(reuse.patched())
-            stack.enter_context(_all_to_all_on_cpu_meshes())
-            stack.enter_context(_marking_sharding_propagation())
-            for mode in (rec, cost, reshard):
-                stack.enter_context(mode)
+        with tracing(time_steps if loop else None) as (rec, cost, reshard):
             fn(*args)
     return Traced(flops=cost.flops, bytes=cost.bytes, wire=wire_bytes_by_kind(rec.ops),
                   collective_counts=collective_counts(rec.ops), argument_bytes=arg_bytes,

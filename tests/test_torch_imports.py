@@ -38,7 +38,13 @@ def test_port_imports_no_jax_and_no_reference():
                  "core.dma.dispatch", "core.serving_model", "serve.workload",
                  "models.transformer", "data.pipeline", "train.tree", "train.optimizer",
                  "train.loop", "train.checkpoint", "launch.train", "bridge",
-                 "models.mamba2", "models.rwkv6", "launch.serve"):
+                 "models.mamba2", "models.rwkv6", "launch.serve", "benchmarks.common",
+                 "benchmarks.run", "benchmarks.tables_dispatch", "benchmarks.tables_multinode",
+                 "benchmarks.trace_export", "benchmarks.sim_perf",
+                 "benchmarks.tpu_collectives", "benchmarks.roofline_table",
+                 "benchmarks.latte_moe_wire", "examples.quickstart",
+                 "examples.pallas_collectives", "examples.train_lm",
+                 "examples.serve_kv_cache"):
         assert f"repro_torch.{name}" in out["imported"]
     loaded = out["loaded"]
     assert not [m for m in loaded if m == "jax" or m.startswith(("jax.", "jaxlib"))]
