@@ -33,17 +33,22 @@ Phases, in order; each raises on failure and nothing is caught:
    16 MiB and 256 MiB gathered per rank: every B3 ``ring_all_gather`` and B4
    ``all_to_all`` variant bit-equal; bf16 times beside the bytes bound
    (input + output bytes at 3.35 TB/s), the plain version and the one-call library
-   yardstick; at 64 KiB the time per ring step, whole (time / steps) and
+   yardstick (device and call ms); at 64 KiB and 1 MiB the host µs per
+   call of every variant and of the library call (300 calls behind a sleep
+   kernel); at 64 KiB the time per ring step, whole (time / steps) and
    marginal (8 ranks against 2, same chunks).
 7. The collectives path (counts zeroed just before, read just after):
    ``CommBackend('latte', axis_devices=8)`` runs all-gather, all-to-all,
    reduce-scatter and all-reduce (f32) on the card, then one latte MoE layer
    of olmoe-1b-7b at full width (d_model 2048, 64 experts, top-8, d_ff 1024,
-   capacity factor 1.25, bf16, 8 ranks x 512 tokens).  Checks: collectives
-   against numpy (AG/AA bit-equal, RS/AR atol 1e-4), B3 and B4 launched, the
-   MoE forward launching B4 exactly twice and bit-equal to the same layer
-   with B4's plain version; a float32 run at the same widths with no drops
-   against a dense oracle.
+   capacity factor 1.25, bf16, 8 ranks x 512 tokens), then the same layer
+   at decode size (8 ranks x 4 tokens, capacity 4: B4 at [8, 8, 32, 2048],
+   1 MiB a rank).  Checks: collectives against numpy (AG/AA bit-equal,
+   RS/AR atol 1e-4), B3 and B4 launched, each MoE forward launching B4
+   exactly twice and bit-equal to the same layer with B4's plain version;
+   B4's device, call and host times at the decode shape beside
+   ``transpose(0, 1).contiguous()``'s and the decode forward's call ms; a
+   float32 run at the same widths with no drops against a dense oracle.
 8. Serving olmoe-1b-7b at full width (16 layers, d_model 2048, 16 heads,
    64 experts, top-8, d_ff_expert 1024, capacity factor 1.25, vocab 50,304,
    bf16, random weights from a seed) with phase 4's batch, context, checks
@@ -151,6 +156,7 @@ ROW = 1024                                   # elements per row of a rank's chun
 GATHERED = {"64KiB": 64 << 10, "1MiB": 1 << 20, "16MiB": 16 << 20, "256MiB": 256 << 20}
 L2_BYTES = 50e6                              # H100 L2 cache
 MOE_ARCH, MOE_TOKENS = "olmoe-1b-7b", 512    # latte MoE: tokens per rank
+MOE_DECODE_TOKENS = 4                        # ... and at decode
 TRAIN_B, TRAIN_S = 4, 1024                   # training: batch x sequence (4,096 tokens)
 EXACT_B, EXACT_S = 2, 256                    # the float32 card-vs-CPU step
 VLM_ARCH, VLM_LAYERS = "qwen2-vl-72b", 8      # 8 of 80 layers: 72.7 B params do not fit
@@ -196,6 +202,21 @@ def call_ms(fn, reps: int = 50, warmup: int = 5) -> float:
     events around the call on an idle card, so the host's work (argument
     checks, launch, host-side copies) counts too."""
     return _events(fn, reps, warmup, sleep_cycles=0)
+
+
+def host_us(fn, calls: int = 300) -> float:
+    """Mean host µs of one call of ``fn`` over ``calls`` calls queued behind
+    a sleep kernel (about 0.2 s), so the card stays busy and no call waits
+    for it: the host's own cost of a call (checks, allocation, launch)."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(400_000_000)
+    t0 = time.perf_counter_ns()
+    for _ in range(calls):
+        fn()
+    t = time.perf_counter_ns() - t0
+    torch.cuda.synchronize()
+    return t / calls / 1e3
 
 
 # Kernel name fragments -> the kind of work, for the busy-time breakdown.
@@ -650,6 +671,8 @@ def check_rank_kernels(dev) -> None:
             ag_bytes, aa_bytes = (1 + n) * gathered, 2 * n * gathered
             row = {"size": label, "per_rank_gathered_bytes": gathered, "dtype": "bfloat16",
                    "ctas_per_rank": ag.ctas_per_rank(n, chunk_bytes),
+                   "aa_ctas_per_rank": {v: aa.ctas_per_rank(n, chunk_bytes, variant=v)
+                                        for v in aa.VARIANTS},
                    "ag_bound_ms": bound_ms(ag_bytes, 0, dtype)[0],
                    "aa_bound_ms": bound_ms(aa_bytes, 0, dtype)[0], "bound_by": "bytes",
                    "ag_l2_resident": ag_bytes <= L2_BYTES, "aa_l2_resident": aa_bytes <= L2_BYTES}
@@ -658,9 +681,16 @@ def check_rank_kernels(dev) -> None:
             row["ag_call_ms"] = {v: call_ms(lambda v=v: ag.ring_all_gather(xs, v), reps=reps)
                                  for v in ag.VARIANTS}
             row["ag_plain_ms"] = device_ms(lambda: all_gather_ref(xs), reps=reps)
-            row["ag_library_ms"] = device_ms(
-                lambda: xs.reshape(1, -1, ROW).expand(n, -1, -1).contiguous(), reps=reps)
             x8 = xa[n]
+
+            def ag_library():
+                return xs.reshape(1, -1, ROW).expand(n, -1, -1).contiguous()
+
+            def aa_library():
+                return x8.transpose(0, 1).contiguous()
+
+            row["ag_library_ms"] = device_ms(ag_library, reps=reps)
+            row["ag_library_call_ms"] = call_ms(ag_library, reps=reps)
             row["aa_ms"] = {v: device_ms(lambda v=v: aa.all_to_all(x8, v), reps=reps)
                             for v in aa.VARIANTS}
             row["aa_call_ms"] = {v: call_ms(lambda v=v: aa.all_to_all(x8, v), reps=reps)
@@ -668,7 +698,15 @@ def check_rank_kernels(dev) -> None:
             row["aa_n6_ms"] = {v: device_ms(lambda v=v: aa.all_to_all(xa[6], v), reps=reps)
                                for v in aa.VARIANTS}
             row["aa_plain_ms"] = device_ms(lambda: all_to_all_ref(x8), reps=reps)
-            row["aa_library_ms"] = device_ms(lambda: x8.transpose(0, 1).contiguous(), reps=reps)
+            row["aa_library_ms"] = device_ms(aa_library, reps=reps)
+            row["aa_library_call_ms"] = call_ms(aa_library, reps=reps)
+            if gathered <= 1 << 20:      # the latency-bound sizes: the host's share
+                row["ag_host_us"] = {v: host_us(lambda v=v: ag.ring_all_gather(xs, v))
+                                     for v in ag.VARIANTS}
+                row["aa_host_us"] = {v: host_us(lambda v=v: aa.all_to_all(x8, v))
+                                     for v in aa.VARIANTS}
+                row["ag_library_host_us"] = host_us(ag_library)
+                row["aa_library_host_us"] = host_us(aa_library)
             if label == "64KiB":
                 row["ag_ms_per_step"] = {v: ms / (n // 2 if v.startswith("bcst") else n - 1)
                                          for v, ms in row["ag_ms"].items()}
@@ -752,10 +790,14 @@ def phase_collectives_path(dev) -> dict:
     operands["reduce_scatter"] = operands["all_reduce"] = operands["all_to_all"]
     on_card = {k: torch.from_numpy(v).to(dev) for k, v in operands.items()}
     cfg, params, x = _moe_setup(dev, torch.bfloat16, 1.25)
+    # decode: 4 tokens a rank, so the capacity is local_capacity's floor of 4
+    x_dec = _randn(torch.Generator(device=dev).manual_seed(11),
+                   (RANKS, MOE_DECODE_TOKENS, cfg.d_model), torch.bfloat16, dev)
     moe = make_latte_moe(cfg, ranks)
     for name in COLLECTIVES:                      # warm-up: libraries, cuBLAS
         getattr(be, name)(on_card[name], ranks)
     moe(params, x)
+    moe(params, x_dec)
     torch.cuda.synchronize()
 
     # ---- the path: counts zeroed just before, read just after ----
@@ -763,14 +805,17 @@ def phase_collectives_path(dev) -> dict:
     results = {name: getattr(be, name)(on_card[name], ranks) for name in COLLECTIVES}
     coll_launches = {"ring_all_gather": ag.launches, "all_to_all": aa.launches}
     out, aux = moe(params, x)
+    prefill_a2a = aa.launches - coll_launches["all_to_all"]
+    out_dec, aux_dec = moe(params, x_dec)
     torch.cuda.synchronize()
     launches = {"ring_all_gather": ag.launches, "all_to_all": aa.launches}
     ag.check()
     aa.check()
 
-    moe_a2a = launches["all_to_all"] - coll_launches["all_to_all"]
-    if moe_a2a != 2:
-        raise AssertionError(f"the latte MoE forward launched all_to_all {moe_a2a} times, want 2")
+    decode_a2a = launches["all_to_all"] - coll_launches["all_to_all"] - prefill_a2a
+    if (prefill_a2a, decode_a2a) != (2, 2):
+        raise AssertionError(f"the latte MoE forwards launched all_to_all {prefill_a2a} "
+                             f"(prefill) and {decode_a2a} (decode) times, want 2 each")
     if coll_launches["ring_all_gather"] == 0 or coll_launches["all_to_all"] == 0:
         raise AssertionError(f"CommBackend did not launch both kernels: {coll_launches}")
     chosen = {}
@@ -802,6 +847,34 @@ def phase_collectives_path(dev) -> dict:
         f"capacity {C}: B4 launched 2 times in the forward; bit-equal to the plain-a2a "
         f"layer; all-to-all operand {list(send_shape)}; forward {json.dumps(fwd)}")
 
+    # ---- the same layer at decode size: B4 at 1 MiB a rank ----
+    if (out_dec.shape != x_dec.shape or not torch.isfinite(out_dec).all()
+            or not math.isfinite(aux_dec.item())):
+        raise AssertionError("decode-size latte MoE output is misshapen or not finite")
+    out_dec_plain, aux_dec_plain = plain(params, x_dec)
+    if not (torch.equal(out_dec, out_dec_plain) and torch.equal(aux_dec, aux_dec_plain)):
+        raise AssertionError("decode-size latte MoE with B4 differs from the plain-a2a layer")
+    C_dec = local_capacity(cfg, MOE_DECODE_TOKENS)
+    dec_shape = (n, n, cfg.moe.n_experts // n * C_dec, cfg.d_model)
+    xs_dec = torch.randn(dec_shape, device=dev).to(torch.bfloat16)
+    if not torch.equal(aa.all_to_all(xs_dec, "b2b"), all_to_all_ref(xs_dec)):
+        raise AssertionError(f"all_to_all b2b differs at {list(dec_shape)}")
+    dec = {"per_rank_bytes": xs_dec[0].numel() * 2,
+           "kernel_ms": device_ms(lambda: aa.all_to_all(xs_dec, "b2b")),
+           "kernel_call_ms": call_ms(lambda: aa.all_to_all(xs_dec, "b2b")),
+           "kernel_host_us": host_us(lambda: aa.all_to_all(xs_dec, "b2b")),
+           "library_ms": device_ms(lambda: xs_dec.transpose(0, 1).contiguous()),
+           "library_call_ms": call_ms(lambda: xs_dec.transpose(0, 1).contiguous()),
+           "bound_ms": bound_ms(2 * xs_dec.numel() * 2, 0, torch.bfloat16)[0],
+           "forward_call_ms": call_ms(lambda: moe(params, x_dec), reps=20, warmup=2),
+           "forward_plain_a2a_call_ms": call_ms(lambda: plain(params, x_dec), reps=20,
+                                                warmup=2)}
+    aa.check()
+    log(f"[path] latte MoE {MOE_ARCH} full width at decode, bf16, {n} ranks x "
+        f"{MOE_DECODE_TOKENS} tokens, capacity {C_dec}: B4 launched 2 times in the forward; "
+        f"bit-equal to the plain-a2a layer; all-to-all operand {list(dec_shape)}: "
+        f"{json.dumps(dec)}")
+
     # ---- B3 / B4 times at the path's shapes ----
     xs_ag = on_card["all_gather"].reshape(n, 512, ROW)
     ag_bound = bound_ms((1 + n) * xs_ag.numel() * 4, 0, torch.float32)
@@ -828,7 +901,7 @@ def phase_collectives_path(dev) -> dict:
         f"{json.dumps(b3)}")
     log(f"[kernel] all_to_all b2b bf16 {list(send_shape)} (the MoE's all-to-all): "
         f"{json.dumps(b4)}")
-    del params, x, out, out_plain, on_card, results
+    del params, x, out, out_plain, on_card, results, x_dec, out_dec, out_dec_plain, xs_dec
     torch.cuda.empty_cache()
     return {"launches": launches, "ring_all_gather": b3, "all_to_all": b4}
 

@@ -2,9 +2,10 @@
 // (ring_all_gather.cu, ring_all_to_all.cu).
 //
 // A collective of the port runs n ranks inside ONE cooperative launch: rank r
-// is CTAs [r * parts, (r + 1) * parts), and each of a rank's `parts` CTAs owns
-// one contiguous share of every chunk's bytes.  The TPU kernels' DMA
-// semaphores become int flags in device memory:
+// is CTAs [r * parts, (r + 1) * parts), and the rank's CTAs split its work
+// (each kernel says how).  The operands are rank-stacked contiguous tensors,
+// passed as base pointers.  The TPU kernels' DMA semaphores become int flags
+// in device memory:
 //
 // * a sender CTA stores its share, then every thread passes a barrier
 //   (bar.sync) and one thread per flag raises it with a release add
@@ -29,10 +30,14 @@
 // wrapper zeroes a new buffer when (e * c) would pass INT32_MAX, and drops a
 // buffer after a failed wait or launch (_rank_sync.py).
 //
+// The CTAs per rank are chosen on the host, once per call shape
+// (`_rank_sync.py`), and passed in: no call queries the device's attributes.
+//
 // Every wait is bounded: after kSpinLimit polls it writes an error word and
 // the CTA returns, so a lost flag ends the kernel instead of hanging the card.
 // The error word lives in pinned host memory mapped into the device, so the
-// host reads it without synchronising (`*_error()` in each library).
+// host reads it without synchronising or calling into the library
+// (`<name>_error_word()` gives its host address once).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -44,13 +49,12 @@ constexpr int kMaxRanks = 64;
 constexpr int kThreads = 512;
 constexpr int kUnroll = 8;                    // 16-byte words in flight per thread
 constexpr long long kSpinLimit = 1ll << 22;   // polls of one wait (a second or two)
-constexpr long long kBytesPerPart = 32 * 1024;
 
 enum class Scope { kGpu, kSys };
 
 // Per-rank base pointers, passed by value in the kernel's parameter space
-// (the device's constant bank): the rank buffers need not be one
-// allocation, and no table is uploaded per call.
+// (the device's constant bank), so no table is uploaded per call
+// (ring_all_gather.cu fills it from the rank-stacked base pointers).
 struct RankPtrs {
   const void* in[kMaxRanks];
   void* out[kMaxRanks];
@@ -58,7 +62,8 @@ struct RankPtrs {
 
 // What a failed wait was waiting for; packed into the error word with the
 // rank, the step and the stream (0 rightward / all-to-all, 1 leftward).
-enum WaitKind { kBarrier = 1, kSend = 2, kRecv = 3 };
+// kArrive: the all-to-all's count of the CTAs that stored into a rank.
+enum WaitKind { kBarrier = 1, kSend = 2, kRecv = 3, kArrive = 4 };
 
 __host__ __device__ constexpr int error_code(int kind, int stream, int rank, int step) {
   return (1 << 30) | (kind << 24) | (stream << 20) | (rank << 10) | step;
@@ -181,33 +186,28 @@ inline cudaError_t ensure_error_word() {
   return cudaSuccess;
 }
 
-// Shares per rank: enough CTAs that each moves about kBytesPerPart per step,
-// at most sm_count / n so every CTA of the grid has an SM of its own (the CTAs
-// wait on each other, so all must be resident: the launch is cooperative).
-// `requested` > 0 overrides the choice.  Returns 0 when it cannot be met.
-inline int choose_parts(int n, long long chunk_bytes, int requested, int device) {
-  int sms = 0, coop = 0;
-  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess ||
-      cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device) != cudaSuccess ||
-      !coop)
-    return 0;
-  const int max_parts = sms / n;
-  if (max_parts < 1) return 0;
-  if (requested > 0) return requested <= max_parts ? requested : 0;
-  long long parts = (chunk_bytes + kBytesPerPart - 1) / kBytesPerPart;
-  if (parts < 1) parts = 1;
-  return (int)(parts < max_parts ? parts : max_parts);
-}
-
-// Widest word that divides every rank pointer and the chunk size, so the
-// copy moves raw bytes and is bit-exact in every dtype.
-inline int word_bytes(const RankPtrs& ptrs, int n, long long chunk_bytes) {
-  uintptr_t align = (uintptr_t)chunk_bytes;
-  for (int r = 0; r < n; ++r) align |= (uintptr_t)ptrs.in[r] | (uintptr_t)ptrs.out[r];
+// Widest word that divides both base pointers and the chunk size (every rank
+// and chunk offset is a multiple of it), so the copy moves raw bytes and is
+// bit-exact in every dtype.
+inline int word_bytes(const void* in, const void* out, long long chunk_bytes) {
+  const uintptr_t align = (uintptr_t)chunk_bytes | (uintptr_t)in | (uintptr_t)out;
   if (align % 16 == 0) return 16;
   if (align % 4 == 0) return 4;
   if (align % 2 == 0) return 2;
   return 1;
+}
+
+// Checks of a call's scalar arguments and its device, shared by the C
+// entries: cudaSetDevice only when `device` is not already current, and the
+// error word allocated on the first call.
+inline cudaError_t prepare_call(int n, long long chunk_bytes, int parts, int epoch, int device) {
+  if (n < 1 || n > kMaxRanks || chunk_bytes <= 0 || parts < 1 || epoch < 1)
+    return cudaErrorInvalidValue;
+  int current = -1;
+  cudaError_t err = cudaGetDevice(&current);
+  if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  return ensure_error_word();
 }
 
 }  // namespace rank_sync

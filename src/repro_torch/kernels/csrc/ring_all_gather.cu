@@ -162,31 +162,26 @@ cudaError_t launch(const RankPtrs& ptrs, int n, long long chunk_bytes, int parts
 
 }  // namespace
 
-// in_ptrs[r]: rank r's chunk (chunk_bytes); out_ptrs[r]: rank r's output
-// (n * chunk_bytes); flags: ring_all_gather_flag_ints(n, parts) ints, zeroed
-// before the first call and kept between calls on one stream; epoch: 1 for
-// the first call on a buffer, one more for each call after.  parts <= 0
-// picks the CTAs per rank.  Returns cudaGetLastError() after the launch (0
-// on success); nothing is synchronised.
-extern "C" int ring_all_gather(const unsigned long long* in_ptrs,
-                               const unsigned long long* out_ptrs, int n,
-                               long long chunk_bytes, int parts, int defer, int bidir,
-                               int* flags, int epoch, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+// in: the rank-stacked shards, n * chunk_bytes (rank r's at r * chunk_bytes);
+// out: the rank-stacked outputs, n * n * chunk_bytes; parts: CTAs per rank,
+// chosen by the caller (_rank_sync.py) so that all n * parts CTAs are
+// resident; flags: ring_all_gather_flag_ints(n, parts) ints, zeroed before
+// the first call and kept between calls on one stream; epoch: 1 for the
+// first call on a buffer, one more for each call after.  Returns
+// cudaGetLastError() after the launch (0 on success); nothing is
+// synchronised.
+extern "C" int ring_all_gather(const void* in, void* out, int n, long long chunk_bytes,
+                               int parts, int defer, int bidir, int* flags, int epoch,
+                               int device, void* stream) {
+  cudaError_t err = prepare_call(n, chunk_bytes, parts, epoch, device);
   if (err != cudaSuccess) return (int)err;
-  if (n < 1 || n > kMaxRanks || chunk_bytes <= 0 || epoch < 1)
-    return (int)cudaErrorInvalidValue;
-  err = ensure_error_word();
-  if (err != cudaSuccess) return (int)err;
-  parts = choose_parts(n, chunk_bytes, parts, device);
-  if (parts == 0) return (int)cudaErrorCooperativeLaunchTooLarge;
   RankPtrs ptrs{};
   for (int r = 0; r < n; ++r) {
-    ptrs.in[r] = reinterpret_cast<const void*>(in_ptrs[r]);
-    ptrs.out[r] = reinterpret_cast<void*>(out_ptrs[r]);
+    ptrs.in[r] = static_cast<const char*>(in) + r * chunk_bytes;
+    ptrs.out[r] = static_cast<char*>(out) + (long long)r * n * chunk_bytes;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (word_bytes(ptrs, n, chunk_bytes)) {
+  switch (word_bytes(in, out, chunk_bytes)) {
     case 16:
       return (int)launch<uint4>(ptrs, n, chunk_bytes, parts, defer, bidir, flags, epoch, s);
     case 4:
@@ -203,19 +198,10 @@ extern "C" long long ring_all_gather_flag_ints(int n, int parts) {
   return flag_ints(n, parts);
 }
 
-// The first failed wait's code since the last clear (0: none).  Reads pinned
-// host memory: no synchronisation, so a failure shows once its kernel ended.
-extern "C" int ring_all_gather_error(void) {
-  const ErrorWord& w = error_word();
-  return w.host ? *(volatile int*)w.host : 0;
-}
-
-extern "C" void ring_all_gather_clear_error(void) {
-  ErrorWord& w = error_word();
-  if (w.host) *(volatile int*)w.host = 0;
-}
-
-// CTAs per rank that a call with these arguments launches (0: cannot launch).
-extern "C" int ring_all_gather_parts(int n, long long chunk_bytes, int parts, int device) {
-  return choose_parts(n, chunk_bytes, parts, device);
+// Host address of the error word (allocated here if no call made it yet;
+// null if it cannot be): the first failed wait's code since the host last
+// wrote 0 there.  The host reads it without synchronising, so a failure
+// shows once its kernel has ended.
+extern "C" int* ring_all_gather_error_word(void) {
+  return ensure_error_word() == cudaSuccess ? error_word().host : nullptr;
 }

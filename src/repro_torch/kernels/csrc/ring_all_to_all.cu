@@ -2,37 +2,67 @@
 //
 // Replaces the Pallas TPU kernel `all_to_all_kernel` / `make_all_to_all` in
 // src/repro/kernels/ring_all_to_all/ring_all_to_all.py, where each device
-// exchanges one chunk per round with a partner by remote DMA.  As in
-// ring_all_gather.cu, the n ranks are n buffers on one card, one cooperative
-// launch runs them all (rank r owns CTAs [r * parts, (r + 1) * parts)), and a
-// remote DMA becomes stores into the partner's output followed by a release
-// of its per-round flag (rank_sync.cuh).
+// exchanges one chunk per round with a partner by remote DMA: round r pairs
+// `my` with my ^ r when n is a power of two (the in-place pairwise swap),
+// else sends to my + r (rotation); round 0 is the local chunk.  Here the n
+// ranks are n slices of one rank-stacked buffer on one card, one cooperative
+// launch runs them all (rank r owns CTAs [r * parts, (r + 1) * parts)), and
+// a remote DMA becomes stores into the partner's output slice followed by a
+// release add on a flag (rank_sync.cuh).
 //
-// Schedule, as in the TPU kernel:
-// 1. neighbour barrier (left and right, wait for 2 * parts per call);
-// 2. local copy x_my[my] -> out_my[my];
-// 3. rounds r = 1 .. n-1: partner = my ^ r when n is a power of two (the
-//    in-place pairwise swap), else my + r (rotation).  Store x_my[partner]
-//    into out_partner[my], raise send[my][r-1] and recv[partner][r-1].  In
-//    each round exactly one rank sends to each rank (my ^ r, or my - r), so
-//    recv[my][r-1] counts exactly that sender's CTAs.
+// What bounds it on the H100.  From about 16 MiB per rank, HBM bytes: every
+// rank reads and writes its n chunks, 2 * n * n * chunk bytes at 3.35 TB/s.
+// Below about 1 MiB per rank, latency: the launch, one dependent trip
+// through L2 for a CTA's loads and one for the release of its stores, and
+// the poll that sees the last flag; the bytes take well under a microsecond.
+// A round-serial schedule pays that trip n - 1 times over: a rank's CTAs
+// walk the partners one round after another, with a release per round, and
+// then poll 2 * (n - 1) flags.  So the design spreads the rounds over CTAs:
 //
-// Variants (flag `b2b` of `ring_all_to_all`):
-// * per_round (b2b=0): wait for send and recv after every round;
-// * b2b (b2b=1): store every round back to back, then drain all flags.  Legal
-//   because the sends read x and the receives land in out (no hazard).
+// * Partner first, share second (b2b).  The host (`_rank_sync.A2APlan`,
+//   this kernel's twin, tested on the CPU) gives each rank `parts` CTAs, up
+//   to sm_count / n.  They are divided over the n rounds first and over
+//   shares of a chunk second: with parts >= n, CTA c takes one share of one round
+//   (parts % n rounds get one share more); with parts < n, CTA c takes whole
+//   rounds c, c + parts, ...  All of a rank's exchanges then run at once on
+//   separate SMs, the card's counterpart of DMA commands on parallel
+//   engine queues.
+// * b2b (b2b=1): one fence per CTA per call.  A CTA puts all the loads of its
+//   rounds in flight before its stores, passes one CTA barrier, and raises
+//   the arrival counter of each of its receivers from one thread each
+//   (warp 0, at once).  Each rank's first CTA then drains one counter, whose
+//   target per call is the count of CTAs that store into that rank
+//   (`arrivals`: parts when parts >= n, else n), instead of polling
+//   2 * (n - 1) flags.  Legal because sends read x and receives land in out.
+// * per_round (b2b=0): round r + 1 starts after round r's send and recv, as
+//   in the TPU kernel, so the rounds form a chain and a round's latency is
+//   paid n - 1 times whatever the plan.  Here CTA c takes share c of every
+//   round, so every round runs on all the rank's CTAs (with one CTA per
+//   round, a round's bytes would wait on one SM's store rate); the host
+//   gives per_round a CTA per 32 KiB of a rank's chunks, since more CTAs
+//   only add skew to each round's flags at small sizes.  A CTA loads the
+//   shares of all its rounds at once when they fit in registers (up to 1
+//   MiB per rank over 8 ranks; loading each round's share just before its
+//   wait instead took 25 and 34 us at 64 KiB and 1 MiB, not 15 and 17,
+//   PERF.md §6), else each round's first batch before its wait.  Round by
+//   round it waits for the previous round's send flag (this rank's CTAs)
+//   and recv flag (the sender's CTAs), stores and raises its round's flags,
+//   and it waits for the last round's flags before it ends.  Round 0 (the
+//   local chunk) is no round of the chain.
 //
-// Syncs (shared with ring_all_gather.cu through rank_sync.cuh): gpu-scope
-// release adds after a CTA barrier, gpu-scope acquire polls with no sleep,
-// the waits of a round (and of the b2b drain) polled at once by one thread
-// each; flags are rank-wide, count `parts` raises per call, and are compared
-// against the call epoch instead of being zeroed per call.  The schedule is
-// that of the first port of this kernel; copy_words keeps 8 words in flight
-// per thread.
+// The TPU kernel's neighbour barrier is gone: on the TPU it keeps a device
+// from writing into a peer that has not entered the kernel yet.  Inside one
+// grid whose output was allocated before the launch, and with flags that
+// count call epochs, it orders nothing (it cost ~1 us, PERF.md §6).  A
+// rendering with ranks on separate cards (peer memory over NVLink, ROADMAP
+// 10b) needs it back, with every flag under Scope::kSys.
 //
-// Bound on the H100: HBM bytes.  Every rank reads and writes n chunks, so
-// the call moves 2 * n * n * chunk bytes at 3.35 TB/s; small chunks are bound
-// by the flag round trips instead.  Raw-byte copies, bit-exact in every dtype.
+// Flags (epoch-counted, never zeroed per call; flag_ints below): arrival
+// counters [n] of b2b, one 128-byte line each since every CTA of the grid
+// raises one; send and recv [n][n] of per_round (index 0 unused).  Every wait is
+// bounded and leaves a code in the error word.  Raw-word copies (16-, 4-,
+// 2- or 1-byte words as the pointers and the chunk allow), bit-exact in
+// every dtype.
 #include "rank_sync.cuh"
 
 using namespace rank_sync;
@@ -40,54 +70,157 @@ using namespace rank_sync;
 namespace {
 
 constexpr Scope kScope = Scope::kGpu;
+constexpr int kPad = 32;    // ints from one rank's arrival counter to the next
 
-template <typename W>
-__global__ void __launch_bounds__(kThreads)
-all_to_all_kernel(RankPtrs ptrs, int n, long long words, int parts, int b2b, int* flags,
-                  int epoch, volatile int* err) {
-  const int my = blockIdx.x / parts;
-  const int part = blockIdx.x % parts;
-  const int left = (my + n - 1) % n;
-  const int right = (my + 1) % n;
-  const int steps = n > 1 ? n - 1 : 1;
-  int* barrier = flags;                  // [n]
-  int* send = barrier + n;               // [n][steps] each
-  int* recv = send + n * steps;
-  const long long lo = words * part / parts;
-  const long long hi = words * (part + 1) / parts;
-  const W* const x = static_cast<const W*>(ptrs.in[my]);   // [n][words]
-  const bool xor_pairing = (n & (n - 1)) == 0;
-  const int full = parts * epoch;        // a flag raised by `parts` CTAs per call
+__host__ __device__ inline long long flag_ints(int n) {
+  return (long long)n * kPad + 2LL * n * n;
+}
 
-  raise_flags<kScope>(barrier + left, barrier + right);
-  if (!wait_for<kScope>(barrier + my, 2 * full, error_code(kBarrier, 0, my, 0), err)) return;
+// b2b: a CTA's rounds first, first + stride, ... (`rounds` of them), and
+// its share of each: share `share` of `shares`.  Twin of A2APlan.work_of.
+struct Work {
+  int first, stride, rounds, share, shares;
+};
 
-  copy_words(x + my * words, static_cast<W*>(ptrs.out[my]) + my * words, (W*)nullptr, lo, hi);
-
-  // Wait w of round r: even w the send flag, odd w the recv flag.
-  auto round_wait = [&](int r, int w) {
-    int* const f = (w % 2 ? recv : send) + my * steps + (r - 1);
-    return Wait{f, full, error_code(w % 2 ? kRecv : kSend, 0, my, r)};
-  };
-  for (int r = 1; r < n; ++r) {
-    const int partner = xor_pairing ? (my ^ r) : (my + r) % n;
-    copy_words(x + partner * words, static_cast<W*>(ptrs.out[partner]) + my * words,
-               (W*)nullptr, lo, hi);
-    const int i = r - 1;
-    raise_flags<kScope>(send + my * steps + i, recv + partner * steps + i);
-    if (!b2b && !wait_all<kScope>(2, [&](int w) { return round_wait(r, w); }, err)) return;
+__device__ __forceinline__ Work work_of(int c, int parts, int n) {
+  if (parts >= n) {
+    const int base = parts / n, extra = parts % n, wide = extra * (base + 1);
+    const int r = c < wide ? c / (base + 1) : extra + (c - wide) / base;
+    const int q = c < wide ? c % (base + 1) : (c - wide) % base;
+    return {r, n, 1, q, r < extra ? base + 1 : base};
   }
-  if (b2b)   // drain the send and recv flags of every round, all polled at once
-    wait_all<kScope>(2 * (n - 1), [&](int w) { return round_wait(1 + w / 2, w % 2); }, err);
+  return {c, parts, (n - 1 - c) / parts + 1, 0, 1};
+}
+
+// Words [lo, hi) of src to dst, kUnroll words per thread in flight.  The
+// first batch is loaded, then every thread runs `before_store` (it may wait
+// on flags; false ends the copy), then the batch is stored.  The loop bound
+// is the same for every thread, so the hook's barriers are reached by all.
+template <typename W, typename F>
+__device__ __forceinline__ bool copy_share(const W* src, W* dst, long long lo, long long hi,
+                                           F before_store) {
+  for (long long b = lo; b < hi || b == lo; b += (long long)kThreads * kUnroll) {
+    W v[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const long long e = b + threadIdx.x + (long long)u * kThreads;
+      if (e < hi) v[u] = __ldcg(src + e);
+    }
+    if (b == lo && !before_store()) return false;
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const long long e = b + threadIdx.x + (long long)u * kThreads;
+      if (e < hi) __stcg(dst + e, v[u]);
+    }
+  }
+  return true;
 }
 
 template <typename W>
-cudaError_t launch(const RankPtrs& ptrs, int n, long long chunk_bytes, int parts, int b2b,
+__global__ void __launch_bounds__(kThreads)
+all_to_all_kernel(const W* __restrict__ x, W* __restrict__ out, int n, long long words,
+                  int parts, int b2b, int* flags, int epoch, volatile int* err) {
+  const int my = blockIdx.x / parts;
+  const int c = blockIdx.x % parts;
+  const bool xor_pairing = (n & (n - 1)) == 0;
+  auto partner = [&](int r) { return xor_pairing ? (my ^ r) : (my + r) % n; };
+  // x[my][p]: rank my's chunk for p; out[p][my]: where it lands
+  auto src = [&](int p) { return x + ((long long)my * n + p) * words; };
+  auto dst = [&](int p) { return out + ((long long)p * n + my) * words; };
+  int* const arrive = flags;                  // [n][kPad]
+  int* const send = flags + n * kPad;         // [n][n]
+  int* const recv = send + n * n;             // [n][n]
+  const Work w = work_of(c, parts, n);
+  auto no_wait = [] { return true; };
+
+  if (b2b) {
+    if (w.rounds == 1) {
+      const int p = partner(w.first);
+      copy_share(src(p), dst(p), words * w.share / w.shares, words * (w.share + 1) / w.shares,
+                 no_wait);
+    } else {
+      // whole chunks of several rounds as one range of rounds * words, so
+      // every round's loads are in flight before the stores
+      const long long total = (long long)w.rounds * words;
+      for (long long b = threadIdx.x; b < total; b += (long long)kThreads * kUnroll) {
+        W v[kUnroll];
+        long long to[kUnroll];
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          const long long e = b + (long long)u * kThreads;
+          if (e < total) {
+            const int i = (int)(e / words);
+            const long long off = e - i * words;
+            const int p = partner(w.first + i * w.stride);
+            v[u] = __ldcg(src(p) + off);
+            to[u] = ((long long)p * n + my) * words + off;
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u)
+          if (b + (long long)u * kThreads < total) __stcg(out + to[u], v[u]);
+      }
+    }
+    __syncthreads();
+    if ((int)threadIdx.x < w.rounds)
+      add_release<kScope>(arrive + partner(w.first + threadIdx.x * w.stride) * kPad);
+    if (c == 0)
+      wait_for<kScope>(arrive + my * kPad, (parts >= n ? parts : n) * epoch,
+                       error_code(kArrive, 0, my, 0), err);
+    return;
+  }
+
+  // per_round: CTA c stores share c (of parts) of every round, rounds in
+  // order, so every round has all of the rank's CTAs; round r >= 2 waits for
+  // round r - 1's send and recv flags, each raised by a rank's parts CTAs.
+  auto wait_round = [&](int r) {
+    return wait_all<kScope>(2, [&](int k) {
+      return k == 0 ? Wait{send + my * n + r, parts * epoch, error_code(kSend, 0, my, r)}
+                    : Wait{recv + my * n + r, parts * epoch, error_code(kRecv, 0, my, r)};
+    }, err);
+  };
+  const long long lo = words * c / parts, len = words * (c + 1) / parts - lo;
+  const long long total = (long long)n * len;
+  if (total <= (long long)kThreads * kUnroll) {
+    // the shares of all rounds fit in registers: load them all at once,
+    // then store round by round
+    W v[kUnroll];
+    int round[kUnroll];
+    long long off[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const long long e = threadIdx.x + (long long)u * kThreads;
+      round[u] = e < total ? (int)(e / len) : n;
+      off[u] = e < total ? lo + e - round[u] * len : 0;
+      if (round[u] < n) v[u] = __ldcg(src(partner(round[u])) + off[u]);
+    }
+    for (int r = 0; r < n; ++r) {
+      if (r >= 2 && !wait_round(r - 1)) return;
+      const int p = partner(r);
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u)
+        if (round[u] == r) __stcg(dst(p) + off[u], v[u]);
+      if (r >= 1) raise_flags<kScope>(send + my * n + r, recv + p * n + r);
+    }
+  } else {
+    for (int r = 0; r < n; ++r) {
+      const int p = partner(r);
+      auto wait_prev = [&] { return r < 2 || wait_round(r - 1); };
+      if (!copy_share(src(p), dst(p), lo, lo + len, wait_prev)) return;
+      if (r >= 1) raise_flags<kScope>(send + my * n + r, recv + p * n + r);
+    }
+  }
+  if (n > 1) wait_round(n - 1);
+}
+
+template <typename W>
+cudaError_t launch(const void* x, void* out, int n, long long chunk_bytes, int parts, int b2b,
                    int* flags, int epoch, cudaStream_t stream) {
-  RankPtrs p = ptrs;
+  const W* xp = static_cast<const W*>(x);
+  W* op = static_cast<W*>(out);
   long long words = chunk_bytes / (long long)sizeof(W);
   volatile int* err = error_word().device;
-  void* args[] = {&p, &n, &words, &parts, &b2b, &flags, &epoch, &err};
+  void* args[] = {&xp, &op, &n, &words, &parts, &b2b, &flags, &epoch, &err};
   cudaError_t e = cudaLaunchCooperativeKernel((const void*)all_to_all_kernel<W>,
                                               dim3((unsigned)(n * parts)), dim3(kThreads),
                                               args, 0, stream);
@@ -97,57 +230,35 @@ cudaError_t launch(const RankPtrs& ptrs, int n, long long chunk_bytes, int parts
 
 }  // namespace
 
-// in_ptrs[r]: rank r's n chunks (n * chunk_bytes); out_ptrs[r]: rank r's
-// output (n * chunk_bytes); flags: ring_all_to_all_flag_ints(n) ints, zeroed
-// before the first call and kept between calls on one stream with the same
-// parts; epoch: 1 for the first call on a buffer, one more for each call
-// after.  parts <= 0 picks the CTAs per rank.  Returns cudaGetLastError()
-// after the launch (0 on success); nothing is synchronised.
-extern "C" int ring_all_to_all(const unsigned long long* in_ptrs,
-                               const unsigned long long* out_ptrs, int n,
-                               long long chunk_bytes, int parts, int b2b, int* flags,
-                               int epoch, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+// x: the rank-stacked input [n][n][chunk_bytes] (x[j][i] is rank j's chunk
+// for rank i); out: the output of the same layout; parts: CTAs per rank,
+// chosen by the caller (_rank_sync.A2APlan) so that all n * parts CTAs are
+// resident; flags: ring_all_to_all_flag_ints(n, parts) ints, zeroed before
+// the first call and kept between calls on one stream with the same parts
+// and variant; epoch: 1 for the first call on a buffer, one more for each
+// call after.  Returns cudaGetLastError() after the launch (0 on success);
+// nothing is synchronised.
+extern "C" int ring_all_to_all(const void* x, void* out, int n, long long chunk_bytes,
+                               int parts, int b2b, int* flags, int epoch, int device,
+                               void* stream) {
+  cudaError_t err = prepare_call(n, chunk_bytes, parts, epoch, device);
   if (err != cudaSuccess) return (int)err;
-  if (n < 1 || n > kMaxRanks || chunk_bytes <= 0 || epoch < 1)
-    return (int)cudaErrorInvalidValue;
-  err = ensure_error_word();
-  if (err != cudaSuccess) return (int)err;
-  parts = choose_parts(n, chunk_bytes, parts, device);
-  if (parts == 0) return (int)cudaErrorCooperativeLaunchTooLarge;
-  RankPtrs ptrs{};
-  for (int r = 0; r < n; ++r) {
-    ptrs.in[r] = reinterpret_cast<const void*>(in_ptrs[r]);
-    ptrs.out[r] = reinterpret_cast<void*>(out_ptrs[r]);
-  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (word_bytes(ptrs, n, chunk_bytes)) {
-    case 16: return (int)launch<uint4>(ptrs, n, chunk_bytes, parts, b2b, flags, epoch, s);
-    case 4: return (int)launch<uint32_t>(ptrs, n, chunk_bytes, parts, b2b, flags, epoch, s);
-    case 2: return (int)launch<uint16_t>(ptrs, n, chunk_bytes, parts, b2b, flags, epoch, s);
-    default: return (int)launch<uint8_t>(ptrs, n, chunk_bytes, parts, b2b, flags, epoch, s);
+  switch (word_bytes(x, out, chunk_bytes)) {
+    case 16: return (int)launch<uint4>(x, out, n, chunk_bytes, parts, b2b, flags, epoch, s);
+    case 4: return (int)launch<uint32_t>(x, out, n, chunk_bytes, parts, b2b, flags, epoch, s);
+    case 2: return (int)launch<uint16_t>(x, out, n, chunk_bytes, parts, b2b, flags, epoch, s);
+    default: return (int)launch<uint8_t>(x, out, n, chunk_bytes, parts, b2b, flags, epoch, s);
   }
 }
 
 // Ints of the flag buffer of a call with n ranks (any parts).
 extern "C" long long ring_all_to_all_flag_ints(int n, int parts) {
   (void)parts;
-  return n + 2LL * n * (n > 1 ? n - 1 : 1);
+  return flag_ints(n);
 }
 
-// The first failed wait's code since the last clear (0: none); no
-// synchronisation (see ring_all_gather_error).
-extern "C" int ring_all_to_all_error(void) {
-  const ErrorWord& w = error_word();
-  return w.host ? *(volatile int*)w.host : 0;
-}
-
-extern "C" void ring_all_to_all_clear_error(void) {
-  ErrorWord& w = error_word();
-  if (w.host) *(volatile int*)w.host = 0;
-}
-
-// CTAs per rank that a call with these arguments launches (0: cannot launch).
-extern "C" int ring_all_to_all_parts(int n, long long chunk_bytes, int parts, int device) {
-  return choose_parts(n, chunk_bytes, parts, device);
+// Host address of the error word (see ring_all_gather_error_word).
+extern "C" int* ring_all_to_all_error_word(void) {
+  return ensure_error_word() == cudaSuccess ? error_word().host : nullptr;
 }

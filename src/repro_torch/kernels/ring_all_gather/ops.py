@@ -18,8 +18,7 @@ import functools
 
 import torch
 
-from .. import _build
-from .._rank_sync import MAX_RANKS, FlagBuffers, check_error, declare, launch
+from .._rank_sync import MAX_RANKS, RankKernel, ring_parts, sm_count, too_many_ctas
 from .ref import all_gather_ref
 
 NAME = "ring_all_gather"
@@ -31,26 +30,19 @@ launches = 0
 
 
 @functools.cache
-def _lib():
-    lib = _build.load(NAME)
-    declare(lib, NAME, n_variant_flags=2)
-    return lib
-
-
-@functools.cache
-def _flags() -> FlagBuffers:
-    """Persistent flag buffers of this kernel (see ``_rank_sync.FlagBuffers``)."""
-    return FlagBuffers(getattr(_lib(), f"{NAME}_flag_ints"))
+def _kernel() -> RankKernel:
+    """The library, its flag buffers and its error word."""
+    return RankKernel(NAME, n_variant_flags=2)
 
 
 def ctas_per_rank(n: int, chunk_bytes: int, requested: int = 0, device: int = 0) -> int:
     """CTAs per rank a launch uses (0: it cannot launch)."""
-    return _lib().ring_all_gather_parts(n, chunk_bytes, requested, device)
+    return ring_parts(n, chunk_bytes, sm_count(device), requested)
 
 
 def check() -> None:
     torch.cuda.synchronize()
-    check_error(_lib(), NAME, _flags())
+    _kernel().check_error()
 
 
 def ring_all_gather(xs: torch.Tensor, variant: str = "b2b", *,
@@ -73,14 +65,17 @@ def ring_all_gather(xs: torch.Tensor, variant: str = "b2b", *,
         raise ValueError(f"unsupported device {xs.device}")
     if not xs.is_contiguous():
         raise ValueError("xs must be contiguous")
-    lib = _lib()
-    check_error(lib, NAME, _flags())
+    kernel = _kernel()
+    kernel.check_error()
     out = torch.empty((n, n * chunk, f), dtype=xs.dtype, device=xs.device)
     if out.numel() == 0:
         return out
+    chunk_bytes = chunk * f * xs.element_size()
+    chosen = ring_parts(n, chunk_bytes, sm_count(xs.device.index), parts or 0)
+    if chosen == 0:
+        raise too_many_ctas(NAME, n, parts)
     defer, bidir = VARIANTS[variant]
     # the bidirectional variants raise the leftward flags too: a buffer of their own
-    launch(lib, NAME, _flags(), xs, out, chunk * f * xs.element_size(), parts,
-           (defer, bidir), layout=bidir)
+    kernel.launch(xs, out, chunk_bytes, chosen, (defer, bidir), layout=bidir)
     launches += 1
     return out

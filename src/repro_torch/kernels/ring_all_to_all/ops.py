@@ -7,9 +7,10 @@ None, None, None))`` in the reference), and returns ``out[i, j] = xs[j, i]``.
 CUDA tensors go to the hand-written kernel, one launch for all ranks; CPU
 tensors to the plain version in ``ref.py``.  ``launches`` counts kernel
 launches (CPU calls do not count); ``check()`` synchronises and raises if a
-wait of an earlier launch ran out of polls.  The kernel's flags live in
-persistent buffers with a call epoch (``_rank_sync.FlagBuffers``): no call
-zeroes anything.
+wait of an earlier launch ran out of polls.  The CTAs per rank and their
+division over partners and shares come from ``_rank_sync.a2a_plan``, cached
+per call shape.  The kernel's flags live in persistent buffers with a call
+epoch (``_rank_sync.FlagBuffers``): no call zeroes anything.
 """
 from __future__ import annotations
 
@@ -17,8 +18,7 @@ import functools
 
 import torch
 
-from .. import _build
-from .._rank_sync import MAX_RANKS, FlagBuffers, check_error, declare, launch
+from .._rank_sync import MAX_RANKS, RankKernel, a2a_plan, sm_count, too_many_ctas
 from .ref import all_to_all_ref
 
 NAME = "ring_all_to_all"
@@ -29,26 +29,23 @@ launches = 0
 
 
 @functools.cache
-def _lib():
-    lib = _build.load(NAME)
-    declare(lib, NAME, n_variant_flags=1)
-    return lib
+def _kernel() -> RankKernel:
+    """The library, its flag buffers (one set per variant: b2b raises the
+    arrival counters, per_round the per-round flags) and its error word.  A
+    flag is raised at most max(parts, n) times per call."""
+    return RankKernel(NAME, n_variant_flags=1, raises=lambda n, parts: max(parts, n))
 
 
-@functools.cache
-def _flags() -> FlagBuffers:
-    """Persistent flag buffers of this kernel (see ``_rank_sync.FlagBuffers``)."""
-    return FlagBuffers(getattr(_lib(), f"{NAME}_flag_ints"))
-
-
-def ctas_per_rank(n: int, chunk_bytes: int, requested: int = 0, device: int = 0) -> int:
+def ctas_per_rank(n: int, chunk_bytes: int, requested: int = 0, device: int = 0,
+                  variant: str = "b2b") -> int:
     """CTAs per rank a launch uses (0: it cannot launch)."""
-    return _lib().ring_all_to_all_parts(n, chunk_bytes, requested, device)
+    plan = a2a_plan(n, chunk_bytes, sm_count(device), requested, bool(VARIANTS[variant]))
+    return plan.parts if plan else 0
 
 
 def check() -> None:
     torch.cuda.synchronize()
-    check_error(_lib(), NAME, _flags())
+    _kernel().check_error()
 
 
 def all_to_all(xs: torch.Tensor, variant: str = "b2b", *,
@@ -71,12 +68,16 @@ def all_to_all(xs: torch.Tensor, variant: str = "b2b", *,
         raise ValueError(f"unsupported device {xs.device}")
     if not xs.is_contiguous():
         raise ValueError("xs must be contiguous")
-    lib = _lib()
-    check_error(lib, NAME, _flags())
+    kernel = _kernel()
+    kernel.check_error()
     out = torch.empty_like(xs)
     if out.numel() == 0:
         return out
-    launch(lib, NAME, _flags(), xs, out, xs[0, 0].numel() * xs.element_size(), parts,
-           (VARIANTS[variant],), layout=0)
+    chunk_bytes = xs.numel() // (n * n) * xs.element_size()
+    b2b = VARIANTS[variant]
+    plan = a2a_plan(n, chunk_bytes, sm_count(xs.device.index), parts or 0, bool(b2b))
+    if plan is None:
+        raise too_many_ctas(NAME, n, parts)
+    kernel.launch(xs, out, chunk_bytes, plan.parts, (b2b,), layout=b2b)
     launches += 1
     return out

@@ -58,7 +58,7 @@ def main(argv=None) -> None:
     if cfg.family == "vlm":
         raise SystemExit("use the dry-run for VLM training shapes (stub frontend)")
     dc = DataConfig(vocab=cfg.vocab, seq_len=args.seq, batch=args.batch, seed=args.seed)
-    it = with_encoder_feats(cfg, data_iterator(dc), args.batch, args.seed)
+    it = with_encoder_feats(cfg, data_iterator(dc), args.batch, args.seed, device=device)
     opt = AdamWConfig(lr=args.lr, warmup_steps=min(20, args.steps // 5 + 1),
                       total_steps=args.steps)
 

@@ -243,6 +243,28 @@ def test_all_to_all_kernel_bit_equal(cuda, variant, dtype, n, chunk, f, parts):
     assert torch.equal(out, all_to_all_ref(xs))
 
 
+@pytest.mark.parametrize("variant", sorted(aa_ops.VARIANTS))
+@pytest.mark.parametrize("n", [8, 6, 16])
+@pytest.mark.parametrize("per_rank", [64 << 10, 1 << 20])
+def test_all_to_all_latency_bound_sizes(cuda, variant, n, per_rank):
+    """About 64 KiB and 1 MiB per rank (the sizes the partner-first plan was
+    built for), XOR (8, 16) and rotation (6) pairing, f32 and bf16, with the
+    chosen CTAs per rank and forced to 1, 3 and the most (1 and 3 < n: a
+    CTA takes several whole rounds)."""
+    most = torch.cuda.get_device_properties(cuda).multi_processor_count // n
+    g = torch.Generator(device=cuda).manual_seed(n + per_rank)
+    for dtype in (torch.float32, torch.bfloat16):
+        rows = per_rank // (n * 128 * torch.finfo(dtype).bits // 8)
+        xs = torch.randn((n, n, rows, 128), generator=g, device=cuda).to(dtype)
+        want = all_to_all_ref(xs)
+        for parts in (None, 1, 3, most):
+            before = aa_ops.launches
+            out = aa_ops.all_to_all(xs, variant, parts=parts)
+            aa_ops.check()
+            assert aa_ops.launches == before + 1
+            assert torch.equal(out, want), (dtype, parts)
+
+
 def test_rank_kernels_refuse_too_many_ctas(cuda):
     """Every CTA must have an SM of its own; more is refused, not launched."""
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
@@ -251,6 +273,11 @@ def test_rank_kernels_refuse_too_many_ctas(cuda):
     with pytest.raises(RuntimeError, match="launch failed"):
         ag_ops.ring_all_gather(xs, parts=sms // 8 + 1)
     assert ag_ops.launches == before
+    xa = torch.zeros((8, 8, 4, 128), device=cuda)
+    before = aa_ops.launches
+    with pytest.raises(RuntimeError, match="launch failed"):
+        aa_ops.all_to_all(xa, parts=sms // 8 + 1)
+    assert aa_ops.launches == before
 
 
 @pytest.mark.parametrize("n", [8, 6])

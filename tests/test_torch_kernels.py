@@ -280,3 +280,73 @@ def test_flag_buffers_epochs():
     assert b3 is not b and e == 1 and not torch.any(b3)
     flags.clear()
     assert len(flags) == 0
+
+
+# ------------------------------------------------------ B4 host plan ----
+def _word_bytes(chunk_bytes: int) -> int:
+    """The kernel's copy word for a chunk (base pointers 256-byte aligned)."""
+    return next(w for w in (16, 4, 2, 1) if chunk_bytes % w == 0)
+
+
+@pytest.mark.parametrize("chunk_bytes", [2, 6, 4096, 8192, 131072, 2 << 20])
+@pytest.mark.parametrize("n", [1, 2, 3, 6, 8, 16, 33, 64])
+def test_all_to_all_plan(n, chunk_bytes):
+    """The CTAs per rank and their partner/share layout (``A2APlan``, the
+    twin of the kernel's division of work), chosen and forced to 1, 3 and
+    the most, for b2b and per_round: every (rank, partner, word) copied
+    exactly once, the grid within the SM count, each arrival counter raised
+    by exactly ``arrivals`` CTAs (b2b's drain target) and each round's send
+    and recv flags by exactly ``shares(r)`` CTAs (per_round's targets)."""
+    from repro_torch.kernels._rank_sync import a2a_plan
+    sms = 132
+    words = chunk_bytes // _word_bytes(chunk_bytes)
+    most = sms // n
+    cases = {(a2a_plan(n, chunk_bytes, sms, 0, b2b), b2b) for b2b in (True, False)}
+    cases |= {(a2a_plan(n, chunk_bytes, sms, p), b2b) for p in (1, 3, most) if p <= most
+              for b2b in (True, False)}
+    assert a2a_plan(n, chunk_bytes, sms, most + 1) is None
+    for plan, b2b in cases:
+        assert plan.grid <= sms and 1 <= plan.parts <= most
+        spans = {}            # (sender, receiver) -> word ranges stored
+        arrivals = [0] * n    # raises of each rank's arrival counter
+        send = np.zeros((n, n), int)
+        recv = np.zeros((n, n), int)
+        for my in range(n):
+            for c in range(plan.parts):
+                rounds, q, s = plan.work_of(c, b2b)
+                for r in rounds:
+                    p = plan.partner(my, r)
+                    spans.setdefault((my, p), []).append((words * q // s, words * (q + 1) // s))
+                    arrivals[p] += 1
+                    send[my, r] += 1
+                    recv[p, r] += 1
+        assert sorted(spans) == [(a, b) for a in range(n) for b in range(n)]
+        for pair, ranges in spans.items():
+            end = 0
+            for lo, hi in sorted(ranges):
+                assert lo == end, (plan, b2b, pair, ranges)
+                end = hi
+            assert end == words, (plan, b2b, pair)
+        if b2b:
+            assert arrivals == [plan.arrivals] * n
+        want = np.array([plan.shares(r, b2b) for r in range(n)])
+        assert (send == want).all() and (recv == want).all()
+        assert want.max() <= plan.arrivals        # FlagBuffers' raises bound
+
+
+def test_all_to_all_plan_is_cached_and_sized():
+    """One plan object per call shape; over 8 ranks b2b gives every rank
+    sms // 8 CTAs, two shares of each of its chunks, and per_round a CTA
+    per 32 KiB of the rank's chunks."""
+    from repro_torch.kernels._rank_sync import a2a_plan, ring_parts
+    assert a2a_plan(8, 8192, 132) is a2a_plan(8, 8192, 132)
+    for per_rank in (64 << 10, 1 << 20, 16 << 20):
+        plan = a2a_plan(8, per_rank // 8, 132)
+        assert plan.parts == 16 and plan.arrivals == 16
+        assert {plan.shares(r) for r in range(8)} == {2}
+    assert a2a_plan(8, 2, 132).parts == 8          # one CTA per round, no empty shares
+    assert [a2a_plan(8, per_rank // 8, 132, b2b=False).parts
+            for per_rank in (2 * 8, 64 << 10, 1 << 20, 16 << 20)] == [1, 2, 16, 16]
+    # the ring all-gather keeps its rule: a CTA per 32 KiB of chunk, <= sms // n
+    assert [ring_parts(8, c, 132) for c in (8192, 131072, 2 << 20)] == [1, 4, 16]
+    assert ring_parts(8, 8192, 132, 17) == 0 and ring_parts(8, 8192, 132, 16) == 16

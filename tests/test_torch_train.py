@@ -414,6 +414,27 @@ def test_train_launcher_writes_checkpoint(tmp_path, capsys):
     assert os.path.getsize(path) > 0
 
 
+def test_train_launcher_draws_encoder_feats_on_its_device(monkeypatch):
+    """The audio family's stub encoder features are drawn on the device
+    ``main`` resolved (the card under ``--device cuda``), not on the CPU and
+    copied to the card every step."""
+    class Stop(Exception):
+        pass
+
+    seen = {}
+    resolved = torch.device("meta")
+
+    def feats(cfg, it, batch, seed, device="cpu"):
+        seen["device"] = device
+        raise Stop
+
+    monkeypatch.setattr(launch_train, "resolve_device", lambda name: resolved)
+    monkeypatch.setattr(launch_train, "with_encoder_feats", feats)
+    with pytest.raises(Stop):
+        launch_train.main(["--device", "cuda", "--arch", "whisper-tiny", "--steps", "2"])
+    assert seen["device"] is resolved
+
+
 def test_train_launcher_unported_family_raises():
     """Every family is ported; the launcher refuses vlm training, as the
     reference's does (its frontend is a stub)."""
