@@ -93,8 +93,9 @@ Phases, in order; each raises on failure and nothing is caught:
     (``FAMILY_RUNS``): a bf16 prefill through ``forward(want_cache=True)``
     and 8 decode steps from its states, with call ms, busy ms, launches,
     busy share and peak memory; then training through ``train_loop`` with
-    phase 10's log lines (zamba2 cut to 2 of its 9 super-blocks; whisper
-    30 steps, the loss falling by more than 0.5).
+    phase 10's log lines (rwkv6 cut to 12 of its 24 layers, zamba2 to 2 of
+    its 9 super-blocks; whisper 30 steps, the loss falling by more than
+    0.5).
 17. Each of the three at its widths cut to 2 layers in float32 (TF32 off):
     the card's forward within 1e-5 of the CPU's (of the largest logit),
     and the token-by-token decode stream within 1e-4 of the forward.
@@ -102,9 +103,16 @@ Phases, in order; each raises on failure and nothing is caught:
     tensors of the card's type: qwen2-0.5b x train_4k (multi-pod 2x16x16,
     512 fake ranks), prefill_32k, decode_32k and long_500k (16x16, 256;
     long_500k is the reference's documented skip), olmoe-1b-7b x train_4k
-    (multi-pod): one ``[dryrun]`` JSON line each, ``ok`` or that skip, and
-    no op run replicated; a ``[dryrun-summary]`` line gives qwen2's train
-    FLOPs per device with its useful ratio and olmoe's wire bytes.
+    (multi-pod): one ``[dryrun]`` JSON line each, ``ok`` or that skip, no
+    op run replicated, and a per-device temp peak (``peak_bytes_per_device``;
+    ``memory_analysis`` gives argument / output / alias / temp bytes and
+    whether they fit 80 GB); a ``[dryrun-summary]`` line gives qwen2's
+    train FLOPs per device with its useful ratio, olmoe's wire bytes and
+    every pair's peak.  Then the memory check (``[memory-check]`` lines):
+    qwen2-0.5b train and prefill and olmoe-1b-7b train at 2 layers, 4 x
+    1024 tokens, each traced on a fake (1, 1) mesh and run once on the
+    card; ``max_memory_allocated`` must lie within 10% of the predicted
+    eager peak (arguments + the peak of all else live).
 19. The twins of the benchmarks and examples that need JAX in the
     reference (``repro_torch.benchmarks``, ``repro_torch.examples``), in
     this process on the card, each raising on failure: the benchmark
@@ -161,7 +169,7 @@ TRAIN_B, TRAIN_S = 4, 1024                   # training: batch x sequence (4,096
 EXACT_B, EXACT_S = 2, 256                    # the float32 card-vs-CPU step
 VLM_ARCH, VLM_LAYERS = "qwen2-vl-72b", 8      # 8 of 80 layers: 72.7 B params do not fit
 # family -> (batch, sequence, train steps, train layers (None: all), seed)
-FAMILY_RUNS = {"rwkv6-1.6b": (2, 512, 3, None, 20),
+FAMILY_RUNS = {"rwkv6-1.6b": (2, 512, 3, 12, 20),        # training: 12 of 24 layers
                "zamba2-2.7b": (2, 512, 3, 12, 30),      # training: 2 of 9 super-blocks
                "whisper-tiny": (4, 448, 30, None, 40)}
 
@@ -1357,7 +1365,6 @@ def phase_dryrun(dev) -> list:
     for arch, shape_id, multi_pod in DRYRUN_PAIRS:
         res = run_one(arch, shape_id, multi_pod=multi_pod, device=dev, verbose=False)
         row = res.to_json()
-        row.pop("memory_analysis")
         log(f"[dryrun] {json.dumps(row)}")
         skip = skip_reason(get_config(arch), get_shape(shape_id))
         if not (res.status == "ok" or (res.status == "skipped" and res.reason == skip)):
@@ -1367,16 +1374,67 @@ def phase_dryrun(dev) -> list:
         if res.status == "ok" and res.replicated_ops:
             raise AssertionError(f"dry-run {arch} x {shape_id}: ops ran replicated: "
                                  f"{res.replicated_ops}")
+        if res.status == "ok" and not res.peak_bytes_per_device:
+            raise AssertionError(f"dry-run {arch} x {shape_id}: no per-device peak")
         results.append(row)
     by_pair = {(r["arch"], r["shape"]): r for r in results}
     qwen2, olmoe = by_pair[ARCH, "train_4k"], by_pair[MOE_ARCH, "train_4k"]
     chips = 2 * 16 * 16
     useful = model_flops(get_config(ARCH), get_shape("train_4k")) / (qwen2["flops"] * chips)
+    peaks = {f"{r['arch']} {r['shape']} {r['mesh']}": r["peak_bytes_per_device"]
+             for r in results if r["status"] == "ok"}
     log(f"[dryrun-summary] {ARCH} train_4k on {qwen2['mesh']}: {qwen2['flops']} FLOPs per "
         f"device, useful ratio {useful}; {MOE_ARCH} train_4k on {olmoe['mesh']}: "
         f"{sum(olmoe['wire_bytes_per_device'].values())} wire B per device "
-        f"{json.dumps(olmoe['wire_bytes_per_device'])}")
+        f"{json.dumps(olmoe['wire_bytes_per_device'])}; temp peak B per device "
+        f"{json.dumps(peaks)}")
     return results
+
+
+# (arch, layers (None: all), mode) of the dry-run's memory against the card,
+# at training's batch x sequence; the measured peak within MEMORY_RTOL
+MEMORY_CHECKS = ((ARCH, None, "train"), (ARCH, None, "prefill"), (MOE_ARCH, 2, "train"))
+MEMORY_RTOL = 0.10
+
+
+def check_step_memory(dev, card: str) -> list:
+    """Phase 18's card check of the dry-run's memory: each step of
+    ``MEMORY_CHECKS`` traced on a fake (1, 1) mesh (``predict_step_memory``)
+    and run ONCE on the card (``measure_step_memory``).  The card's peak
+    (``max_memory_allocated`` above what was allocated before) must lie
+    within ``MEMORY_RTOL`` of the eager peak the trace predicts: the
+    arguments plus the peak of all else live.  XLA's argument + output +
+    temp, which counts the outputs from the step's start, is logged beside
+    it."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.dryrun import measure_step_memory, predict_step_memory
+    rows = []
+    for arch, layers, mode in MEMORY_CHECKS:
+        cfg = get_config(arch)
+        if layers:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        shape = ShapeConfig(f"{mode}_step", TRAIN_S, TRAIN_B, mode)
+        t0 = time.perf_counter()
+        mem = predict_step_memory(cfg, shape, device=dev)
+        trace_s = time.perf_counter() - t0
+        got = measure_step_memory(cfg, shape, device=dev)
+        row = {"arch": arch, "n_layers": cfg.n_layers, "mode": mode, "batch": TRAIN_B,
+               "seq": TRAIN_S, "argument_bytes": mem.argument_bytes,
+               "output_bytes": mem.output_bytes, "alias_bytes": mem.alias_bytes,
+               "temp_bytes": mem.temp_bytes, "predicted_peak_bytes": mem.live_peak_bytes,
+               "argument_output_temp_bytes": mem.total_bytes,
+               "measured_argument_bytes": got["argument_bytes"],
+               "max_memory_allocated_bytes": got["peak_bytes"],
+               "ratio": got["peak_bytes"] / mem.live_peak_bytes,
+               "ratio_to_argument_output_temp": got["peak_bytes"] / mem.total_bytes,
+               "trace_s": trace_s, "card": card}
+        log(f"[memory-check] {json.dumps(row)}")
+        if abs(row["ratio"] - 1) > MEMORY_RTOL:
+            raise AssertionError(f"{arch} {mode}: the card peaked at {got['peak_bytes']} B, "
+                                 f"the dry-run predicts {mem.live_peak_bytes} B")
+        rows.append(row)
+    return rows
 
 
 ROOFLINE_PAIRS = [(a, s) for a, s, _ in DRYRUN_PAIRS]
@@ -1499,8 +1557,9 @@ def main() -> int:
     # 17: float32 exactness of the new families at 2 layers
     for arch, (_, _, _, _, seed) in FAMILY_RUNS.items():
         run("family_exact_" + arch, phase_family_exactness, dev, get_config(arch), seed + 2)
-    # 18: the dry-run on the production meshes
+    # 18: the dry-run on the production meshes, and its memory against the card
     run("dryrun", phase_dryrun, dev)
+    run("dryrun_memory", check_step_memory, dev, card)
     # 19: the twins of the benchmarks and examples
     twins = run("twins", phase_twins, dev)
     for name, n in twins.items():

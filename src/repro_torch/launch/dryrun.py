@@ -9,8 +9,11 @@ are DTensors laid out by ``sharding.rules`` over a mesh of torch's
 activations where the reference constrains them.  Nothing is allocated and
 no collective moves data.  The result records per-device FLOPs and bytes
 (``roofline.costing.LocalCostMode``), the collectives DTensor issued, by the
-reference's kind names (``roofline.wire``), and the exact bytes of the
-arguments' local shards.
+reference's kind names (``roofline.wire``), and the per-device memory
+(``roofline.memory.LiveMemoryMode``): the bytes of the arguments' and the
+outputs' local shards, the outputs that alias an argument, and the temp
+peak (``peak_bytes_per_device``, XLA's ``temp_size_in_bytes``), with
+whether argument + output - alias + temp fit one H100's 80 GB.
 
 DTensor is not GSPMD: it lays out each op on its own, eagerly.  Where the
 two differ most, the dry-run does what GSPMD does, so that its counts can
@@ -37,7 +40,7 @@ op run replicated):
   DynamicUpdateSlice does.  A matmul whose plan leaves a Partial sum
   GSPMD avoids gathers the keys, or reduce-scatters the Partial operand
   (``_Reshard._matmul``), and a Partial input that DTensor all-reduces for
-  a pointwise op is reduce-scattered instead (``_scattered_partials``).
+  a pointwise op is reduce-scattered instead (``_scatter_targets``).
   Any other op DTensor cannot shard runs on replicated inputs, counted in
   ``replicated_ops``.  What a refused attempt recorded is dropped.
 * ``_rows_kept_matmuls``: a matmul of x [B, S, D] by w with the sequence
@@ -51,7 +54,21 @@ op run replicated):
   XLA's common-subexpression elimination leaves it.
 * ``_all_to_all_on_cpu_meshes``: a CPU mesh traces the all-to-all a CUDA
   mesh would, not the whole-dim gather gloo makes do with.
-* Attention is traced unchunked (``trace_step``).
+* ``_ShardedGather``: the gradient of a gather along a split dim (the
+  loss's pick of the label's logit) is scattered per shard into zeros of
+  the input's own shard, where autograd's backward makes the zeros at the
+  input's global shape on every rank.
+* Attention runs in query chunks as the model runs it, each rank chunking
+  its own queries (``_own_query_chunks``); the costs come from a trace of
+  unchunked attention where a rank runs more than one chunk
+  (``trace_dryrun``).
+
+Memory (``trace_memory``): a redistribution kept for reuse lives while
+its source does (XLA's CSE keeps it to its last use, so this is an upper
+bound); what a refused attempt allocated is forgotten; a time scan cut to
+n steps is traced at two lengths and its temp extrapolated to every step.
+Eager ops allocate what XLA would fuse (the float32 casts of the loss), so
+the temp is an upper bound on a fused program's.
 
 Known gaps (PERF.md): the two partitioners still pick different
 collectives (DTensor reduce-scatters and all-to-alls where GSPMD
@@ -65,7 +82,8 @@ FLOPs per device on 2.11.
 
 The rwkv6 / zamba2 time loops launch ~7 ops per step and layer; the dry-run
 traces their first ``time_steps`` steps (``traced_time_steps``, recorded in
-``time_steps_traced``) and zeros stand in for the rest.
+``time_steps_traced``) and zeros stand in for the rest; the memory's two
+lengths are three and four scan chunks (``memory_time_steps``).
 
 Usage (on the card unless ``--device cpu``; fake tensors of that device's
 type either way):
@@ -80,6 +98,8 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
+import gc
 import importlib
 import itertools
 import json
@@ -101,10 +121,11 @@ from torch.utils._pytree import tree_map_only
 from repro_torch.compat import resolve_device
 from repro_torch.configs import ARCH_IDS, INPUT_SHAPES, get_config, get_shape
 from repro_torch.configs.base import ArchConfig, ShapeConfig
-from repro_torch.models import build_model
-from repro_torch.models import mamba2, rwkv6
+from repro_torch.models import attention, build_model, mamba2, rwkv6
 from repro_torch.models.attention import dense_attention_for_costing
+from repro_torch.models.transformer import identity_ac
 from repro_torch.roofline.costing import LocalCostMode, _marking_sharding_propagation
+from repro_torch.roofline.memory import LiveMemoryMode, MemoryAnalysis
 from repro_torch.roofline.wire import (CollectiveRecorder, collective_counts, on_dtensors,
                                        tensor_bytes, wire_bytes_by_kind)
 from repro_torch.sharding.rules import (PerfOptions, ShardingRules, batch_specs, cache_specs,
@@ -114,7 +135,8 @@ from repro_torch.train.loop import make_train_step
 from repro_torch.train.optimizer import AdamWConfig, init_opt_state
 from repro_torch.train.tree import tree_leaves, tree_map
 from .input_specs import input_specs, skip_reason
-from .mesh import dp_axes, fake_world, make_production_mesh, mesh_name, production_mesh_shape
+from .mesh import (dp_axes, fake_world, make_mesh, make_production_mesh, mesh_name,
+                   production_mesh_shape)
 
 
 @dataclasses.dataclass
@@ -139,12 +161,6 @@ class DryrunResult:
         return dataclasses.asdict(self)
 
 
-# MemTracker (torch.distributed._tools) sizes DTensors by their global
-# shapes: a 2 MiB local shard and two temporaries of its size peak at
-# 24 MiB, not 6, so it gives no per-device peak here
-_PEAK_NOT_MEASURED = "not measured (MemTracker counts DTensors at global size)"
-
-
 @dataclasses.dataclass
 class Traced:
     """What one traced step measured (per device)."""
@@ -157,6 +173,8 @@ class Traced:
     n_ops: int = 0
     time_steps_traced: int | None = None
     replicated_ops: dict = dataclasses.field(default_factory=dict)
+    memory: MemoryAnalysis = dataclasses.field(default_factory=MemoryAnalysis)
+    query_chunked: bool = False     # a rank ran attention in more than one query chunk
 
 
 def _local_shape(shape, placements, mesh) -> tuple:
@@ -291,6 +309,9 @@ class _ReusedRedistributions:
     gradient, the gather of an activation three projections read), where
     XLA's common-subexpression elimination keeps one collective per operand
     and layout (an operand written in place since is another operand).
+    A result is kept while its source lives (no later call can name a dead
+    source), so the memory counts it that long; a redistribution that moves
+    nothing (a mesh dim of one rank) returns its input and is not kept.
     ``mark`` / ``roll_back`` drop what a refused attempt added."""
 
     _MODULES = ("_dispatch", "_redistribute", "_api")
@@ -301,6 +322,10 @@ class _ReusedRedistributions:
 
     def mark(self) -> int:
         return len(self.added)
+
+    def _dead(self, key, ref) -> None:
+        if self.memo.get(key, (None,))[0] is ref:
+            del self.memo[key]
 
     def roll_back(self, mark: int) -> None:
         for key, _, _ in self.added[mark:]:
@@ -331,7 +356,10 @@ class _ReusedRedistributions:
             if hit is not None and hit[0]() is local_tensor:
                 return hit[1]
             out = original(local_tensor, current_spec, target_spec, *args, **kwargs)
-            self.memo[key] = (weakref.ref(local_tensor), out)
+            if out is local_tensor:     # nothing moved (a mesh dim of size 1)
+                return out
+            # the entry goes with its source, which no later call can name
+            self.memo[key] = (weakref.ref(local_tensor, functools.partial(self._dead, key)), out)
             self.added.append((key, tuple(current_spec.placements),
                                tuple(target_spec.placements)))
             return out
@@ -584,20 +612,23 @@ class _Reshard(TorchDispatchMode):
     ``rec`` and ``cost`` recorded for a refused attempt is rolled back."""
 
     def __init__(self, rec: CollectiveRecorder, cost: LocalCostMode,
-                 reuse: _ReusedRedistributions):
+                 reuse: _ReusedRedistributions, mem: LiveMemoryMode | None = None):
         super().__init__()
         self.rec, self.cost, self.reuse = rec, cost, reuse
+        self.mem = mem if mem is not None else LiveMemoryMode()
         self.replicated_ops: dict[str, int] = {}
         self.rows = weakref.WeakValueDictionary()   # id -> row of a sharded dim
+        self.query_chunk_loops: list[int] = []     # per chunked call: the queries chunked
 
     def _mark(self) -> tuple:
         return (len(self.rec.ops), self.cost.flops, self.cost.bytes, self.cost.n_ops,
-                self.reuse.mark())
+                self.reuse.mark(), self.mem.mark())
 
     def _roll_back(self, mark: tuple) -> None:
         del self.rec.ops[mark[0]:]
         self.cost.flops, self.cost.bytes, self.cost.n_ops = mark[1:4]
         self.reuse.roll_back(mark[4])
+        self.mem.roll_back(mark[5])
 
     def _view(self, func, args, kwargs):
         """A reshape whose result DTensor cannot lay out (an uneven split),
@@ -625,22 +656,26 @@ class _Reshard(TorchDispatchMode):
                 out = None
             if out is not None and not _strided(out) and _n_sharded(out) >= _n_sharded(y):
                 return out
+            # DTensor's view is refused, strided or gathers: drop it (its
+            # records and its buffers) before the relabelled one is made
+            usable, out = out is not None and not _strided(out), None
+            self._roll_back(mark)
             relabelled = _relabelled_view(y, args[1])
             if relabelled is not None:
-                self._roll_back(mark)
                 return relabelled
-            if out is not None and not _strided(out):
-                return out
+            if usable:
+                return func(y, *args[1:], **kwargs)
             self._roll_back(before)
         raise RuntimeError(f"{func} does not lay out even on replicated inputs")
 
-    def _scattered_partials(self, args, mark) -> list | None:
+    def _scatter_targets(self, args, mark) -> dict | None:
         """Where DTensor all-reduced a Partial input of a pointwise op since
         ``mark`` (torch 2.11's plan of an expert FFN's gated hidden, which
-        leaves every data rank with the whole FFN), the args with each
-        Partial reduce-scattered onto the input's largest free dim instead,
-        as 2.13 and GSPMD keep it split; None where nothing was."""
-        out, changed = list(args), False
+        leaves every data rank with the whole FFN): {arg index: placements}
+        with each Partial of that arg reduce-scattered onto its largest free
+        dim instead, as 2.13 and GSPMD keep it split; None where nothing
+        was."""
+        targets = {}
         for i, a in enumerate(args):
             if not (isinstance(a, DTensor) and any(p.is_partial() for p in a.placements)
                     and self.reuse.all_reduced(a._local_tensor, mark[4])):
@@ -653,8 +688,13 @@ class _Reshard(TorchDispatchMode):
                     d = max(free, key=lambda d: a.shape[d])
                     placements[m] = Shard(d)
                     taken.add(d)
-            out[i], changed = _to(a, placements), True
-        return out if changed else None
+            targets[i] = placements
+        return targets or None
+
+    @staticmethod
+    def _scattered(args, targets: dict) -> list:
+        """The args with ``_scatter_targets``' Partials reduce-scattered."""
+        return [_to(a, targets[i]) if i in targets else a for i, a in enumerate(args)]
 
     def _matmul(self, func, a: DTensor, b: DTensor):
         """A (batched) matmul as GSPMD partitions it where DTensor's output
@@ -785,11 +825,14 @@ class _Reshard(TorchDispatchMode):
             out = func(*args, **kwargs)
             if torch.Tag.pointwise not in func.tags:
                 return out
-            scattered = self._scattered_partials(args, mark)
-            if scattered is None:
+            targets = self._scatter_targets(args, mark)
+            if targets is None:
                 return out
+            # DTensor's all-reduce is dropped; the reduce-scatters that
+            # replace it are made (and recorded) after the roll back
+            out = None
             self._roll_back(mark)
-            return func(*scattered, **kwargs)
+            return func(*self._scattered(args, targets), **kwargs)
         except (RuntimeError, NotImplementedError) as e:
             if not _sharding_failure(e):
                 raise
@@ -802,6 +845,68 @@ class _Reshard(TorchDispatchMode):
         out = func(*args, **kwargs)
         return tree_map_only(torch.Tensor, lambda t: DTensor.from_local(
             t, mesh, [Replicate()] * mesh.ndim, run_check=False), out)
+
+
+def _gather_layout(x, dim: int, index) -> list | None:
+    """The layout ``index`` of ``torch.gather(x, dim, index)`` takes where
+    ``_Reshard._gather`` picks per shard of a DTensor ``x`` split along
+    ``dim`` (x's placements, with Replicate where x is split along
+    ``dim``); None where it does not (``dim`` not split, a Partial ``x``,
+    or an index laid out otherwise)."""
+    if not isinstance(x, DTensor) or dim % x.ndim not in _split_dims(x) or \
+            any(isinstance(p, Partial) for p in x.placements):
+        return None
+    dim %= x.ndim
+    want = [Replicate() if isinstance(p, Shard) and p.dim == dim else p for p in x.placements]
+    have = index.placements if isinstance(index, DTensor) else [Replicate()] * x.device_mesh.ndim
+    return want if list(have) == want else None
+
+
+class _ShardedGather(torch.autograd.Function):
+    """``torch.gather`` of a DTensor along a split dim (the loss's pick of
+    the label's logit from logits split over the vocab), whose gradient is
+    laid out as its input, as GSPMD partitions the scatter of a gather's
+    backward: each shard adds the gradients of the indices in its rows into
+    zeros of its own shard.  Autograd's ``gather_backward`` makes the zeros
+    with ``new_zeros`` at the input's global shape, which DTensor lays out
+    replicated: a whole float32 [batch, sequence, vocab] on every rank."""
+
+    @staticmethod
+    def forward(ctx, x, dim, index):
+        ctx.dim, ctx.layout = dim % x.ndim, (x.shape, list(x.placements), x.device_mesh)
+        ctx.save_for_backward(index)
+        return _torch_gather(x, dim, index)
+
+    @staticmethod
+    def backward(ctx, grad):
+        index, = ctx.saved_tensors
+        (shape, placements, mesh), dim = ctx.layout, ctx.dim
+        grad = _to(_as_dtensor(grad, mesh), _as_dtensor(index, mesh).placements)
+        start, n = _rows_of(shape[dim], placements, mesh, dim)
+        rows = _as_dtensor(index, mesh).to_local() - start
+        g = grad.to_local()
+        local = g.new_zeros(_local_shape(shape, placements, mesh))
+        local.scatter_add_(dim, rows.clamp(0, max(n - 1, 0)),
+                           torch.where((rows >= 0) & (rows < n), g, torch.zeros_like(g)))
+        return _dense(mesh, shape, placements, local), None, None
+
+
+_torch_gather = torch.gather
+
+
+@contextlib.contextmanager
+def _sharded_gathers():
+    """For the duration, ``torch.gather`` and ``Tensor.gather`` go through
+    ``_ShardedGather`` where ``_gather_layout`` applies (patched, not
+    caught by a mode: the gradient's layout is autograd's)."""
+    def gather(x, dim, index, **kwargs):
+        if kwargs or _gather_layout(x, dim, index) is None:
+            return _torch_gather(x, dim, index, **kwargs)
+        return _ShardedGather.apply(x, dim, index)
+
+    with mock.patch.object(torch, "gather", gather), \
+            mock.patch.object(torch.Tensor, "gather", gather):
+        yield
 
 
 def _keeps_rows(x, w) -> bool:
@@ -906,6 +1011,59 @@ def _all_to_all_on_cpu_meshes():
         yield
 
 
+def _own_query_chunks(q, k, v, q_pos, k_pos, q_chunk: int, *, loops: list, **kw):
+    """``attention.query_chunks`` with the queries' sequence split over the
+    mesh: each rank runs its own queries in chunks of up to ``q_chunk``.
+    Where a rank holds at most one chunk, its queries run as one block, as
+    unchunked; else chunk i of the trace is every rank's i-th local chunk,
+    a DTensor laid out as ``q``, with its positions laid out alike (so the
+    causal mask is [chunk, S] per rank) and the keys and values gathered
+    once for all chunks.  Slicing global chunks would gather the
+    sequence, where each rank's share is already one chunk or a few.
+    Each call that runs more than one block appends to ``loops``."""
+    seq = [m for m, p in enumerate(q.placements) if isinstance(p, Shard) and p.dim == 1
+           and q.device_mesh.size(m) > 1] if isinstance(q, DTensor) else []
+    if not seq:
+        loops.append(q.shape[1])
+        return _query_chunks(q, k, v, q_pos, k_pos, q_chunk, **kw)
+    mesh, local = q.device_mesh, q.to_local()
+    n_shards = math.prod(mesh.size(m) for m in seq)
+    S_local = local.shape[1]
+    if S_local <= q_chunk:
+        return attention._attn_scores_block(q, k, v, q_pos, k_pos, **kw)
+    loops.append(S_local)
+    if S_local * n_shards != q.shape[1]:
+        raise RuntimeError(f"query chunks: {q.shape[1]} queries do not split evenly "
+                           f"over {n_shards} ranks")
+    start, _ = _rows_of(q.shape[1], q.placements, mesh, 1)
+    pos = q_pos.to_local() if isinstance(q_pos, DTensor) else q_pos
+    pos = pos[start:start + S_local]
+    pos_placements = [Shard(0) if m in seq else Replicate() for m in range(mesh.ndim)]
+    # the keys and values gathered over the sequence's mesh dims once, as
+    # the unchunked product gathers them, not again for each chunk
+    def gathered(t):
+        return t if not isinstance(t, DTensor) else t.redistribute(mesh, [
+            Replicate() if m in seq and p == Shard(1) else p for m, p in enumerate(t.placements)])
+
+    k, v = gathered(k), gathered(v)
+    outs = []
+    for c in range(0, S_local, q_chunk):
+        n = min(q_chunk, S_local - c)
+        qc = _dense(mesh, (q.shape[0], n * n_shards) + tuple(q.shape[2:]), q.placements,
+                    local[:, c:c + n])
+        pc = _dense(mesh, (n * n_shards,), pos_placements, pos[c:c + n])
+        outs.append(attention._attn_scores_block(qc, k, v, pc, k_pos, **kw))
+    placements = outs[0].placements
+    if any(o.placements != placements for o in outs) or \
+            any(not (isinstance(placements[m], Shard) and placements[m].dim == 1) for m in seq):
+        return torch.cat(outs, dim=1)
+    return _dense(mesh, (q.shape[0], q.shape[1]) + tuple(outs[0].shape[2:]), placements,
+                  torch.cat([o.to_local() for o in outs], dim=1))
+
+
+_query_chunks = attention.query_chunks
+
+
 @contextlib.contextmanager
 def traced_time_steps(n: int):
     """For the duration, the rwkv6 / mamba2 time scans run their first ``n``
@@ -934,10 +1092,12 @@ def tracing(time_steps: int | None = None):
     ``implicit_replication``, on DTensors over a fake process group), DTensor
     code is traced as the dry-run traces a step: yields ``(rec, cost,
     reshard)``, the collectives recorded, the per-device costs and the
-    ``_Reshard`` mode (its ``replicated_ops``).  ``time_steps`` cuts the
-    time scans (``traced_time_steps``)."""
-    rec, cost, reuse = CollectiveRecorder(), LocalCostMode(), _ReusedRedistributions()
-    reshard = _Reshard(rec, cost, reuse)
+    ``_Reshard`` mode (its ``replicated_ops``; its ``mem``, the
+    ``LiveMemoryMode`` of the trace).  ``time_steps`` cuts the time scans
+    (``traced_time_steps``)."""
+    rec, cost, reuse, mem = (CollectiveRecorder(), LocalCostMode(), _ReusedRedistributions(),
+                             LiveMemoryMode())
+    reshard = _Reshard(rec, cost, reuse, mem)
     with contextlib.ExitStack() as stack:
         if time_steps is not None:
             stack.enter_context(traced_time_steps(time_steps))
@@ -945,7 +1105,10 @@ def tracing(time_steps: int | None = None):
         stack.enter_context(_all_to_all_on_cpu_meshes())
         stack.enter_context(_marking_sharding_propagation())
         stack.enter_context(_rows_kept_matmuls())
-        for mode in (rec, cost, reshard):
+        stack.enter_context(_sharded_gathers())
+        stack.enter_context(mock.patch.object(attention, "query_chunks", functools.partial(
+            _own_query_chunks, loops=reshard.query_chunk_loops)))
+        for mode in (rec, cost, mem, reshard):
             stack.enter_context(mode)
         yield rec, cost, reshard
 
@@ -980,11 +1143,21 @@ def build_step(arch_id: str, shape_id: str, mesh, *, cfg: ArchConfig | None = No
     specs = input_specs(cfg, shape, model, device=dev)
     batch = dist(specs["batch"], batch_specs(specs["batch"], cfg, shape, rules))
 
+    caches = None
+    if shape.mode == "decode":
+        caches = dist(specs["caches"], cache_specs(specs["caches"], cfg, shape, rules))
+    opt = None
     if shape.mode == "train":
         opt = init_opt_state(params)
         opt["step"] = _distribute(opt["step"], (), mesh)
+    return _step(model, shape, perf, ac, params, batch, opt, caches), None
+
+
+def _step(model, shape: ShapeConfig, perf: PerfOptions, ac, params, batch, opt, caches):
+    """``(fn, args)`` of the step of ``shape.mode`` on these inputs."""
+    if shape.mode == "train":
         step = make_train_step(model, AdamWConfig(), cast_params=perf.cast_params_bf16, ac=ac)
-        return (step, ({"params": params, "opt": opt}, batch)), None
+        return step, ({"params": params, "opt": opt}, batch)
 
     if shape.mode == "prefill":
         def prefill(params, batch):
@@ -993,48 +1166,164 @@ def build_step(arch_id: str, shape_id: str, mesh, *, cfg: ArchConfig | None = No
                                                   remat=False, ac=ac)
             return logits, caches
 
-        return (prefill, (params, batch)), None
+        return prefill, (params, batch)
 
     # decode: ONE new token against the full-capacity cache, written at the
     # last slot (the port's decode step takes the position as an int)
-    caches = dist(specs["caches"], cache_specs(specs["caches"], cfg, shape, rules))
-
     def decode(params, batch, caches):
         with torch.no_grad():
             return model.decode_step(params, dict(batch, pos=shape.seq_len - 1), caches, ac=ac)
 
-    return (decode, (params, batch, caches)), None
+    return decode, (params, batch, caches)
+
+
+def measure_step_memory(cfg: ArchConfig, shape: ShapeConfig, device="cuda") -> dict:
+    """ONE train or prefill step of ``cfg`` at ``shape`` run on the card, as
+    ``build_step`` builds it but on plain tensors (no mesh): params from
+    seed 0, tokens drawn from the vocab.  Returns the bytes the caching
+    allocator held for it: ``argument_bytes`` (state and batch) and
+    ``peak_bytes`` (``torch.cuda.max_memory_allocated`` over the step),
+    each above what was allocated before.  Needs a card."""
+    dev = resolve_device(device)
+    if dev.type != "cuda" or shape.mode == "decode":
+        raise ValueError(f"measures a train or prefill step on a card, not {shape.mode} "
+                         f"on {dev}")
+    model, perf = build_model(cfg), PerfOptions()
+    gc.collect()
+    torch.cuda.synchronize(dev)
+    base = torch.cuda.memory_allocated(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = model.init(gen, masters=True)
+    batch = {k: (torch.randint(0, cfg.vocab, v.shape, generator=gen, dtype=v.dtype, device=dev)
+                 if k in ("tokens", "labels") else torch.zeros(v.shape, dtype=v.dtype,
+                                                              device=dev))
+             for k, v in input_specs(cfg, shape, model)["batch"].items()}
+    opt = init_opt_state(params) if shape.mode == "train" else None
+    fn, args = _step(model, shape, perf, identity_ac, params, batch, opt, None)
+    del params, batch, opt
+    torch.cuda.synchronize(dev)
+    arguments = torch.cuda.memory_allocated(dev) - base
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = fn(*args)
+    torch.cuda.synchronize(dev)
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    del out, args, fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"argument_bytes": arguments, "peak_bytes": peak}
+
+
+def predict_step_memory(cfg: ArchConfig, shape: ShapeConfig, device="cuda") -> MemoryAnalysis:
+    """``trace_memory`` of the step ``measure_step_memory`` runs: fake
+    tensors of ``device``'s type on a fake (1, 1) mesh."""
+    dev = resolve_device(device)
+    with fake_world(1):
+        mem, _ = trace_memory(cfg.name, shape.name, make_mesh((1, 1), ("data", "model"), dev),
+                              cfg=cfg, shape=shape, device=dev)
+    return mem
 
 
 def trace_step(arch_id: str, shape_id: str, mesh, *, cfg: ArchConfig | None = None,
                shape: ShapeConfig | None = None, perf: PerfOptions | None = None,
                device="cuda", time_steps: int = mamba2.TIME_CHUNK) -> Traced:
     """Build and run one step on fake tensors over ``mesh`` (whose fake
-    process group must be active), counting its per-device costs."""
+    process group must be active), counting its per-device costs and
+    memory.  Attention runs in query chunks as the model runs it (each
+    rank chunking its own queries, ``_own_query_chunks``); the costing
+    traces it unchunked under ``dense_attention_for_costing``."""
     cfg = cfg or get_config(arch_id)
     shape = shape or get_shape(shape_id)
     loop = cfg.family in ("ssm", "hybrid")      # a time scan (decode: one step)
     steps = (None if not loop else 1 if shape.mode == "decode"
              else min(shape.seq_len, time_steps))
-    # attention unchunked, as the costing traces it: the query chunks bound
-    # one device's [*, chunk, S] block, a memory the dry-run does not
-    # measure, and slicing global chunks out of a sequence split over
-    # 'model' (qwen2-0.5b's) would gather it where each rank's own queries
-    # are already a chunk
-    with FakeTensorMode(), implicit_replication(), dense_attention_for_costing():
+    with FakeTensorMode(), implicit_replication():
         built, reason = build_step(arch_id, shape_id, mesh, cfg=cfg, shape=shape, perf=perf,
                                    device=device)
         if built is None:
             return Traced(skip_reason=reason)
         fn, args = built
-        arg_bytes = sum(tensor_bytes(x.to_local()) for x in
-                        tree_leaves(args) if isinstance(x, DTensor))
         with tracing(time_steps if loop else None) as (rec, cost, reshard):
-            fn(*args)
+            reshard.mem.hold_arguments(args)
+            memory = reshard.mem.analysis(fn(*args))
     return Traced(flops=cost.flops, bytes=cost.bytes, wire=wire_bytes_by_kind(rec.ops),
-                  collective_counts=collective_counts(rec.ops), argument_bytes=arg_bytes,
-                  n_ops=cost.n_ops, time_steps_traced=steps,
-                  replicated_ops=reshard.replicated_ops)
+                  collective_counts=collective_counts(rec.ops),
+                  argument_bytes=memory.argument_bytes, n_ops=cost.n_ops,
+                  time_steps_traced=steps, replicated_ops=reshard.replicated_ops, memory=memory,
+                  query_chunked=bool(reshard.query_chunk_loops))
+
+
+def memory_time_steps(cfg: ArchConfig, shape: ShapeConfig) -> tuple[int, int] | None:
+    """The two time-scan lengths whose traces the dry-run's temp peak is
+    extrapolated from, or None where it traces every step (no time loop,
+    decode's one step, or a sequence of at most four scan chunks).  Where
+    the full scan checkpoints per chunk of ``mamba2.TIME_CHUNK``, both are
+    whole chunks, three and four (a cut of one or two chunks peaks where
+    the zeros standing in for the rest are made); otherwise both are cut
+    one step short of that, so the cut scan runs flat as the full one
+    does."""
+    T, C = shape.seq_len, mamba2.TIME_CHUNK
+    if cfg.family not in ("ssm", "hybrid") or shape.mode == "decode" or T <= 4 * C:
+        return None
+    return (3 * C, 4 * C) if T % C == 0 else (3 * C - 1, 4 * C - 1)
+
+
+def trace_memory(arch_id: str, shape_id: str, mesh, *, cfg: ArchConfig | None = None,
+                 shape: ShapeConfig | None = None,
+                 device="cuda") -> tuple[MemoryAnalysis, str]:
+    """The step's per-device memory over every time step, traced as the
+    step runs (attention in query chunks).  Where the time scans are cut
+    (``memory_time_steps``), the step is traced at two lengths n1 < n2 and
+    the temp peak extrapolated to T steps as temp(n2) + (T - n2) x
+    (temp(n2) - temp(n1)) / (n2 - n1), as the costing adds the steps it
+    does not trace: exact where the peak grows by the same bytes a step
+    from n1 to T (the scan's saved state sets it) or not at all.  Returns
+    the memory and how its peak was found."""
+    cfg = cfg or get_config(arch_id)
+    shape = shape or get_shape(shape_id)
+    lengths = memory_time_steps(cfg, shape)
+    T = shape.seq_len
+    if lengths is None:
+        tr = trace_step(arch_id, shape_id, mesh, cfg=cfg, shape=shape, device=device,
+                        time_steps=T)
+        return tr.memory, ("every time step traced" if tr.time_steps_traced else "")
+    (n1, n2), (t1, t2) = lengths, [
+        trace_step(arch_id, shape_id, mesh, cfg=cfg, shape=shape, device=device,
+                   time_steps=n).memory for n in lengths]
+    return (dataclasses.replace(t2, temp_bytes=t2.temp_bytes + (T - n2) * (
+                t2.temp_bytes - t1.temp_bytes) // (n2 - n1)),
+            f"temp of {T} time steps extrapolated from traces of {n1} and {n2} steps "
+            f"({t1.temp_bytes} and {t2.temp_bytes} B)")
+
+
+def trace_dryrun(arch_id: str, shape_id: str, mesh, *, cfg: ArchConfig | None = None,
+                 device="cuda") -> tuple[Traced, str]:
+    """The dry-run's trace of a step, the time scans cut to
+    ``mamba2.TIME_CHUNK`` steps.  Its costs come from a trace with
+    attention unchunked (one [S, S] block, as the costing and the
+    reference's cost analysis count it) wherever a rank runs more than
+    one query chunk: a chunk's plan differs from GSPMD's where the keys
+    are split over the sequence and the queries are not (stablelm-12b,
+    mixtral-8x7b, qwen2-vl-72b).  Its memory comes from the trace with
+    query chunks, as the step runs, over every time step
+    (``trace_memory``).  Returns the trace and how its memory was found."""
+    cfg = cfg or get_config(arch_id)
+    shape = get_shape(shape_id)
+    tr = trace_step(arch_id, shape_id, mesh, cfg=cfg, device=device)
+    if tr.skip_reason:
+        return tr, ""
+    memory, method = tr.memory, ("every time step traced" if tr.time_steps_traced else "")
+    if tr.time_steps_traced not in (None, 1, shape.seq_len):
+        memory, method = trace_memory(arch_id, shape_id, mesh, cfg=cfg, device=device)
+    if tr.query_chunked:
+        with dense_attention_for_costing():
+            tr = trace_step(arch_id, shape_id, mesh, cfg=cfg, device=device)
+        method = "; ".join(x for x in (method, "costs from a trace of unchunked attention") if x)
+    tr.memory = memory
+    return tr, method
+
+
+# one H100's memory (80 GB HBM3), the "fits?" line of the memory analysis
+DEVICE_BYTES = 80 * 10**9
 
 
 def run_one(arch_id: str, shape_id: str, *, multi_pod: bool = False, device="cuda",
@@ -1048,7 +1337,7 @@ def run_one(arch_id: str, shape_id: str, *, multi_pod: bool = False, device="cud
         mesh = make_production_mesh(multi_pod=multi_pod, device=dev)
         name = mesh_name(mesh)
         try:
-            tr = trace_step(arch_id, shape_id, mesh, cfg=cfg, device=dev)
+            tr, method = trace_dryrun(arch_id, shape_id, mesh, cfg=cfg, device=dev)
         except Exception as e:   # a failed pair is a result, as in the reference
             if verbose:
                 traceback.print_exc()
@@ -1057,19 +1346,26 @@ def run_one(arch_id: str, shape_id: str, *, multi_pod: bool = False, device="cud
                                 compile_seconds=time.perf_counter() - t0)
     if tr.skip_reason:
         return DryrunResult(arch_id, shape_id, name, "skipped", reason=tr.skip_reason)
+    mem = tr.memory
+    fits = "fits" if mem.total_bytes <= DEVICE_BYTES else "does not fit"
     res = DryrunResult(
         arch_id, shape_id, name, "ok",
         flops=tr.flops, bytes_accessed=tr.bytes, collective_counts=tr.collective_counts,
-        memory_analysis=(f"per device: arguments {tr.argument_bytes} B; {tr.n_ops} local "
-                         f"aten ops traced; peak {_PEAK_NOT_MEASURED}"),
-        argument_bytes_per_device=float(tr.argument_bytes),
+        memory_analysis=(f"per device: {mem}; argument + output - alias + temp = "
+                         f"{mem.total_bytes} B, {fits} in {DEVICE_BYTES} B; "
+                         f"{tr.n_ops} local aten ops traced"
+                         + (f"; {method}" if method else "")),
+        peak_bytes_per_device=float(mem.temp_bytes),
+        argument_bytes_per_device=float(mem.argument_bytes),
         compile_seconds=time.perf_counter() - t0, time_steps_traced=tr.time_steps_traced,
         replicated_ops=tr.replicated_ops, wire_bytes_per_device=tr.wire)
     if verbose:
         print(f"[ok] {arch_id} x {shape_id} x {name}: flops={res.flops:.3e} "
               f"bytes={res.bytes_accessed:.3e} collectives={res.collective_counts} "
-              f"wire={sum(tr.wire.values()):.3e} "
+              f"wire={sum(tr.wire.values()):.3e} peak={mem.temp_bytes:.4e} "
+              f"arguments={mem.argument_bytes:.4e} ({fits}) "
               f"trace={res.compile_seconds:.1f}s replicated_ops={res.replicated_ops}")
+        print(f"     memory_analysis: {res.memory_analysis}")
     return res
 
 

@@ -90,14 +90,25 @@ def _scores(q: torch.Tensor, k: torch.Tensor, head_dim: int, cap: float | None):
 def _attn_scores_block(q, k, v, q_pos, k_pos, *, head_dim, causal, window, cap):
     """Dense attention of one query block against the full K/V. [B,C,KV,G,hd]."""
     scores = _scores(q, k, head_dim, cap)
-    mask = torch.ones((q_pos.shape[0], k_pos.shape[0]), dtype=torch.bool, device=q.device)
+    mask = None
     if causal:
-        mask = mask & (q_pos[:, None] >= k_pos[None, :])
+        mask = q_pos[:, None] >= k_pos[None, :]
     if window is not None:
-        mask = mask & (q_pos[:, None] - k_pos[None, :] < window)
-    scores = torch.where(mask, scores, NEG_INF)
+        near = q_pos[:, None] - k_pos[None, :] < window
+        mask = near if mask is None else mask & near
+    if mask is not None:
+        scores = torch.where(mask, scores, NEG_INF)
     w = torch.softmax(scores, dim=-1).to(q.dtype)
     return torch.einsum("bkgcs,bskd->bckgd", w, v)
+
+
+def query_chunks(q, k, v, q_pos, k_pos, q_chunk: int, **kw):
+    """Dense attention of the queries ``q`` [B,S,KV,G,hd] in chunks of
+    ``q_chunk`` along S, each against the full K/V (the dry-run patches
+    this to chunk each rank's own queries)."""
+    return torch.cat([_attn_scores_block(q[:, c:c + q_chunk], k, v, q_pos[c:c + q_chunk],
+                                         k_pos, **kw)
+                      for c in range(0, q.shape[1], q_chunk)], dim=1)
 
 
 def attention_ctx(cfg: ArchConfig, p: dict, x: torch.Tensor, *, rope, causal: bool = True,
@@ -121,9 +132,7 @@ def attention_ctx(cfg: ArchConfig, p: dict, x: torch.Tensor, *, rope, causal: bo
     if S <= CHUNK_THRESHOLD or S % q_chunk != 0:
         out = _attn_scores_block(q, k, v, q_pos, k_pos, **kw)
     else:
-        out = torch.cat([_attn_scores_block(q[:, c:c + q_chunk], k, v, q_pos[c:c + q_chunk],
-                                            k_pos, **kw)
-                         for c in range(0, S, q_chunk)], dim=1)
+        out = query_chunks(q, k, v, q_pos, k_pos, q_chunk, **kw)
 
     out = out.reshape(B, S, H * hd) @ p["wo"].to(x.dtype)
     if return_kv:

@@ -109,6 +109,12 @@ def _marking_sharding_propagation():
         setattr(ShardingPropagator, name, original)
 
 
+def in_sharding_propagation() -> bool:
+    """Whether DTensor is running an op on global-shaped fake tensors now
+    (under ``_marking_sharding_propagation``)."""
+    return getattr(_in_propagation, "on", False)
+
+
 def _moves_no_bytes(func) -> bool:
     return (func.is_view or func.namespace in ("_c10d_functional", "_dtensor", "c10d", "prim")
             or func._overloadpacket.__name__.startswith(("empty", "new_empty"))
@@ -130,7 +136,7 @@ class LocalCostMode(TorchDispatchMode):
             return NotImplemented
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
-        if getattr(_in_propagation, "on", False):
+        if in_sharding_propagation():
             return out
         self.n_ops += 1
         count = flop_registry.get(func._overloadpacket)

@@ -1,4 +1,4 @@
-"""The port's CUDA kernels, serving path and training path on the card.
+"""The port's CUDA kernels, serving and training paths, and the dry-run's memory, on the card.
 
 Every test here is marked ``gpu`` and skips where no card is present (the
 CUDA kernels have no CPU mode).  This file imports neither JAX nor the JAX
@@ -14,7 +14,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.bridge import train_state_from_numpy, train_state_to_numpy  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import ShapeConfig, get_config  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, data_iterator, synth_batch  # noqa: E402
 from repro_torch.kernels.decode_attention import ops as da_ops  # noqa: E402
 from repro_torch.kernels.decode_attention.ref import paged_decode_attention_ref  # noqa: E402
@@ -24,6 +24,7 @@ from repro_torch.kernels.ring_all_gather import ops as ag_ops  # noqa: E402
 from repro_torch.kernels.ring_all_gather.ref import all_gather_ref  # noqa: E402
 from repro_torch.kernels.ring_all_to_all import ops as aa_ops  # noqa: E402
 from repro_torch.kernels.ring_all_to_all.ref import all_to_all_ref  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch.train import with_encoder_feats  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
@@ -526,3 +527,20 @@ def test_train_lm_example_learns_on_card(cuda):
     from repro_torch.examples import train_lm
     hist = train_lm.main(["--device", "cuda"])
     assert hist[-1]["loss"] < hist[0]["loss"] - 0.5
+
+
+@pytest.mark.parametrize("arch,layers,mode", [("qwen2-0.5b", None, "train"),
+                                              ("qwen2-0.5b", None, "prefill"),
+                                              ("olmoe-1b-7b", 2, "train")])
+def test_dryrun_memory_matches_the_card(cuda, arch, layers, mode):
+    """One step at 4 x 1024 tokens on the card: ``max_memory_allocated``
+    within 10% of the eager peak the dry-run traces on a fake (1, 1) mesh
+    (arguments + the peak of all else live), the arguments within 1%."""
+    cfg = get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    shape = ShapeConfig(f"{mode}_step", 1024, 4, mode)
+    mem = dryrun.predict_step_memory(cfg, shape, device=cuda)
+    got = dryrun.measure_step_memory(cfg, shape, device=cuda)
+    assert got["argument_bytes"] == pytest.approx(mem.argument_bytes, rel=0.01)
+    assert got["peak_bytes"] == pytest.approx(mem.live_peak_bytes, rel=0.10)

@@ -314,10 +314,26 @@ def test_only_the_all_reduced_partial_is_scattered():
         with reuse.patched(), costing._marking_sharding_propagation(), rec, cost:
             mark = reshard._mark()
             b.redistribute(mesh, [Replicate(), Replicate()])      # DTensor's all-reduce of b
-            got = reshard._scattered_partials((a, b), mark)
+            got = reshard._scattered((a, b), reshard._scatter_targets((a, b), mark))
     assert got[0] is a
     assert list(got[1].placements) == [Replicate(), Shard(0)]
     assert [op.kind for op in rec.ops] == ["all-reduce", "reduce-scatter"]
+
+
+def test_reduce_scatter_of_a_partial_is_counted():
+    """A pointwise op on a Partial operand under the dry-run's tracing: the
+    reduce-scatter that replaces DTensor's all-reduce is recorded, and no
+    all-reduce."""
+    with fake_world(8):
+        mesh = make_mesh((2, 4), ("data", "model"), device="cpu")
+        with FakeTensorMode(), implicit_replication():
+            a = DTensor.from_local(torch.empty(8, 6), mesh, [Replicate(), Partial()],
+                                   run_check=False)
+            with dryrun.tracing() as (rec, _, _):
+                y = a * a
+    assert list(y.placements) == [Replicate(), Shard(0)]
+    assert [(op.kind, op.out_bytes, op.in_bytes) for op in rec.ops] == \
+        [("reduce-scatter", 2 * 6 * 4, 8 * 6 * 4)]
 
 
 MATMUL_SPELLINGS = {"at": lambda x, w: x @ w, "method": lambda x, w: x.matmul(w),
