@@ -108,7 +108,11 @@ Phases, in order; each raises on failure and nothing is caught:
     ``memory_analysis`` gives argument / output / alias / temp bytes and
     whether they fit 80 GB); a ``[dryrun-summary]`` line gives qwen2's
     train FLOPs per device with its useful ratio, olmoe's wire bytes and
-    every pair's peak.  Then the memory check (``[memory-check]`` lines):
+    every pair's peak.  Then the query chunks' check
+    (``[dryrun-query-chunks]`` lines): stablelm-12b, mixtral-8x7b and
+    qwen2-vl-72b train_4k and prefill_32k at 1 layer on 16x16, traced with
+    attention in query chunks and unchunked, FLOPs and wire bytes within
+    3%.  Then the memory check (``[memory-check]`` lines):
     qwen2-0.5b train and prefill and olmoe-1b-7b train at 2 layers, 4 x
     1024 tokens, each traced on a fake (1, 1) mesh and run once on the
     card; ``max_memory_allocated`` must lie within 10% of the predicted
@@ -137,6 +141,7 @@ Exits non-zero without printing a result when no CUDA device is present.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -1391,6 +1396,51 @@ def phase_dryrun(dev) -> list:
     return results
 
 
+# archs whose 8 KV heads a 'model' of 16 does not divide, traced at 1 layer
+# on 16x16 with attention chunked and unchunked (C-port7)
+QUERY_CHUNK_PAIRS = [(a, s) for a in ("stablelm-12b", "mixtral-8x7b", "qwen2-vl-72b")
+                     for s in ("train_4k", "prefill_32k")]
+QUERY_CHUNK_RTOL = 0.03
+
+
+def check_query_chunks(dev) -> list:
+    """Phase 18's check of the dry-run's query chunks on this torch: each
+    pair of ``QUERY_CHUNK_PAIRS`` at full width cut to 1 layer, traced on
+    16x16 as the dry-run traces it (attention in query chunks) and with
+    attention unchunked (``dense_attention_for_costing``).  Per-device
+    FLOPs and wire bytes must agree within ``QUERY_CHUNK_RTOL``: the
+    chunks keep one block's plan."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import trace_step
+    from repro_torch.launch.mesh import fake_world, make_production_mesh
+    from repro_torch.models.attention import dense_attention_for_costing
+    rows = []
+    for arch, shape_id in QUERY_CHUNK_PAIRS:
+        cfg = dataclasses.replace(get_config(arch), n_layers=1)
+        row = {"arch": arch, "shape": shape_id, "mesh": "16x16", "n_layers": 1,
+               "torch": torch.__version__}
+        with fake_world(256):
+            mesh = make_production_mesh(device=dev)
+            for name, attention in (("chunked", contextlib.nullcontext),
+                                    ("unchunked", dense_attention_for_costing)):
+                t0 = time.perf_counter()
+                with attention():
+                    tr = trace_step(arch, shape_id, mesh, cfg=cfg, device=dev)
+                row[name] = {"flops": tr.flops, "wire": sum(tr.wire.values()),
+                             "counts": tr.collective_counts,
+                             "replicated_ops": tr.replicated_ops,
+                             "seconds": time.perf_counter() - t0}
+        c, u = row["chunked"], row["unchunked"]
+        row["flops_ratio"], row["wire_ratio"] = c["flops"] / u["flops"], c["wire"] / u["wire"]
+        log(f"[dryrun-query-chunks] {json.dumps(row)}")
+        if any(abs(row[k] - 1) > QUERY_CHUNK_RTOL for k in ("flops_ratio", "wire_ratio")):
+            raise AssertionError(f"{arch} {shape_id} on 16x16: query chunks give "
+                                 f"{row['flops_ratio']} x the FLOPs and {row['wire_ratio']} x "
+                                 f"the wire of one block")
+        rows.append(row)
+    return rows
+
+
 # (arch, layers (None: all), mode) of the dry-run's memory against the card,
 # at training's batch x sequence; the measured peak within MEMORY_RTOL
 MEMORY_CHECKS = ((ARCH, None, "train"), (ARCH, None, "prefill"), (MOE_ARCH, 2, "train"))
@@ -1559,7 +1609,10 @@ def main() -> int:
         run("family_exact_" + arch, phase_family_exactness, dev, get_config(arch), seed + 2)
     # 18: the dry-run on the production meshes, and its memory against the card
     run("dryrun", phase_dryrun, dev)
+    run("dryrun_query_chunks", check_query_chunks, dev)
     run("dryrun_memory", check_step_memory, dev, card)
+    phase_18 = ("dryrun", "dryrun_query_chunks", "dryrun_memory")
+    log(f"[phase] 18_total {sum(phase_s[k] for k in phase_18):.3f}s")
     # 19: the twins of the benchmarks and examples
     twins = run("twins", phase_twins, dev)
     for name, n in twins.items():

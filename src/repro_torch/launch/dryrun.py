@@ -58,10 +58,15 @@ op run replicated):
   loss's pick of the label's logit) is scattered per shard into zeros of
   the input's own shard, where autograd's backward makes the zeros at the
   input's global shape on every rank.
-* Attention runs in query chunks as the model runs it, each rank chunking
-  its own queries (``_own_query_chunks``); the costs come from a trace of
-  unchunked attention where a rank runs more than one chunk
-  (``trace_dryrun``).
+* Attention runs in query chunks as the model runs it
+  (``_own_query_chunks``), with the plan of one unchunked block: queries
+  split over the sequence are chunked by each rank on its own, and
+  otherwise the chunks are concatenated in one block's memory layout, so
+  a Partial sum of the output (8 KV heads on a 'model' of 16) is
+  reduce-scattered before the output projection as one block's is.  One
+  trace gives the costs, the collectives and the memory
+  (``trace_dryrun``; ``tests/test_torch_query_chunks.py`` holds it
+  against the reference on (1, 16) and against unchunked on 16x16).
 
 Memory (``trace_memory``): a redistribution kept for reuse lives while
 its source does (XLA's CSE keeps it to its last use, so this is an upper
@@ -122,7 +127,6 @@ from repro_torch.compat import resolve_device
 from repro_torch.configs import ARCH_IDS, INPUT_SHAPES, get_config, get_shape
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.models import attention, build_model, mamba2, rwkv6
-from repro_torch.models.attention import dense_attention_for_costing
 from repro_torch.models.transformer import identity_ac
 from repro_torch.roofline.costing import LocalCostMode, _marking_sharding_propagation
 from repro_torch.roofline.memory import LiveMemoryMode, MemoryAnalysis
@@ -174,7 +178,6 @@ class Traced:
     time_steps_traced: int | None = None
     replicated_ops: dict = dataclasses.field(default_factory=dict)
     memory: MemoryAnalysis = dataclasses.field(default_factory=MemoryAnalysis)
-    query_chunked: bool = False     # a rank ran attention in more than one query chunk
 
 
 def _local_shape(shape, placements, mesh) -> tuple:
@@ -618,7 +621,6 @@ class _Reshard(TorchDispatchMode):
         self.mem = mem if mem is not None else LiveMemoryMode()
         self.replicated_ops: dict[str, int] = {}
         self.rows = weakref.WeakValueDictionary()   # id -> row of a sharded dim
-        self.query_chunk_loops: list[int] = []     # per chunked call: the queries chunked
 
     def _mark(self) -> tuple:
         return (len(self.rec.ops), self.cost.flops, self.cost.bytes, self.cost.n_ops,
@@ -1011,27 +1013,42 @@ def _all_to_all_on_cpu_meshes():
         yield
 
 
-def _own_query_chunks(q, k, v, q_pos, k_pos, q_chunk: int, *, loops: list, **kw):
-    """``attention.query_chunks`` with the queries' sequence split over the
-    mesh: each rank runs its own queries in chunks of up to ``q_chunk``.
-    Where a rank holds at most one chunk, its queries run as one block, as
-    unchunked; else chunk i of the trace is every rank's i-th local chunk,
-    a DTensor laid out as ``q``, with its positions laid out alike (so the
-    causal mask is [chunk, S] per rank) and the keys and values gathered
-    once for all chunks.  Slicing global chunks would gather the
-    sequence, where each rank's share is already one chunk or a few.
-    Each call that runs more than one block appends to ``loops``."""
+def _own_query_chunks(q, k, v, q_pos, k_pos, q_chunk: int, **kw):
+    """``attention.query_chunks`` as the dry-run traces it, so that the
+    chunks keep the plan of one unchunked block.
+
+    Queries not split over the sequence: chunks of ``q_chunk`` along S,
+    concatenated in the memory layout of one block's output
+    (``_cat_as_one_block``).  The model's reshape before the output
+    projection then copies them as it copies one block's strided output,
+    and DTensor lays out that copy as it lays out one block's.  Where the
+    output is a Partial sum (8 KV heads on a 'model' of 16: the keys split
+    over the sequence, the queries replicated), torch 2.13's copy
+    reduce-scatters it, and the projection and its gradients run on a
+    shard.  A plain ``torch.cat`` is contiguous, so the reshape is a view,
+    and the Partial reaches the projection, which then runs on the whole
+    [B x S, H x hd] on every rank.
+
+    Queries split over the sequence: each rank runs its own queries in
+    chunks.  Where a rank holds at most one chunk, its queries run as one
+    block, as unchunked; else chunk i of the trace is every rank's i-th
+    local chunk, a DTensor laid out as ``q``, with its positions laid out
+    alike (so the causal mask is [chunk, S] per rank) and the keys and
+    values gathered once for all chunks.  Slicing global chunks would
+    gather the sequence, where each rank's share is already one chunk or a
+    few."""
     seq = [m for m, p in enumerate(q.placements) if isinstance(p, Shard) and p.dim == 1
            and q.device_mesh.size(m) > 1] if isinstance(q, DTensor) else []
     if not seq:
-        loops.append(q.shape[1])
-        return _query_chunks(q, k, v, q_pos, k_pos, q_chunk, **kw)
+        return _cat_as_one_block([
+            attention._attn_scores_block(q[:, c:c + q_chunk], k, v, q_pos[c:c + q_chunk],
+                                         k_pos, **kw)
+            for c in range(0, q.shape[1], q_chunk)], dim=1)
     mesh, local = q.device_mesh, q.to_local()
     n_shards = math.prod(mesh.size(m) for m in seq)
     S_local = local.shape[1]
     if S_local <= q_chunk:
         return attention._attn_scores_block(q, k, v, q_pos, k_pos, **kw)
-    loops.append(S_local)
     if S_local * n_shards != q.shape[1]:
         raise RuntimeError(f"query chunks: {q.shape[1]} queries do not split evenly "
                            f"over {n_shards} ranks")
@@ -1061,7 +1078,13 @@ def _own_query_chunks(q, k, v, q_pos, k_pos, q_chunk: int, *, loops: list, **kw)
                   torch.cat([o.to_local() for o in outs], dim=1))
 
 
-_query_chunks = attention.query_chunks
+def _cat_as_one_block(outs: list, dim: int):
+    """``torch.cat(outs, dim)`` with the strides one block's output has:
+    the chunks' dims put in the order of their strides, concatenated there
+    and permuted back."""
+    order = sorted(range(outs[0].ndim), key=lambda d: -outs[0].stride(d))
+    back = sorted(range(len(order)), key=order.__getitem__)
+    return torch.cat([o.permute(order) for o in outs], dim=order.index(dim)).permute(back)
 
 
 @contextlib.contextmanager
@@ -1106,8 +1129,7 @@ def tracing(time_steps: int | None = None):
         stack.enter_context(_marking_sharding_propagation())
         stack.enter_context(_rows_kept_matmuls())
         stack.enter_context(_sharded_gathers())
-        stack.enter_context(mock.patch.object(attention, "query_chunks", functools.partial(
-            _own_query_chunks, loops=reshard.query_chunk_loops)))
+        stack.enter_context(mock.patch.object(attention, "query_chunks", _own_query_chunks))
         for mode in (rec, cost, mem, reshard):
             stack.enter_context(mode)
         yield rec, cost, reshard
@@ -1227,10 +1249,11 @@ def trace_step(arch_id: str, shape_id: str, mesh, *, cfg: ArchConfig | None = No
                shape: ShapeConfig | None = None, perf: PerfOptions | None = None,
                device="cuda", time_steps: int = mamba2.TIME_CHUNK) -> Traced:
     """Build and run one step on fake tensors over ``mesh`` (whose fake
-    process group must be active), counting its per-device costs and
-    memory.  Attention runs in query chunks as the model runs it (each
-    rank chunking its own queries, ``_own_query_chunks``); the costing
-    traces it unchunked under ``dense_attention_for_costing``."""
+    process group must be active), counting its per-device costs,
+    collectives and memory.  Attention runs in query chunks as the model
+    runs it, with the plan of one unchunked block (``_own_query_chunks``);
+    the roofline's costing traces it unchunked under
+    ``dense_attention_for_costing``, as the reference's costing does."""
     cfg = cfg or get_config(arch_id)
     shape = shape or get_shape(shape_id)
     loop = cfg.family in ("ssm", "hybrid")      # a time scan (decode: one step)
@@ -1248,8 +1271,7 @@ def trace_step(arch_id: str, shape_id: str, mesh, *, cfg: ArchConfig | None = No
     return Traced(flops=cost.flops, bytes=cost.bytes, wire=wire_bytes_by_kind(rec.ops),
                   collective_counts=collective_counts(rec.ops),
                   argument_bytes=memory.argument_bytes, n_ops=cost.n_ops,
-                  time_steps_traced=steps, replicated_ops=reshard.replicated_ops, memory=memory,
-                  query_chunked=bool(reshard.query_chunk_loops))
+                  time_steps_traced=steps, replicated_ops=reshard.replicated_ops, memory=memory)
 
 
 def memory_time_steps(cfg: ArchConfig, shape: ShapeConfig) -> tuple[int, int] | None:
@@ -1298,28 +1320,21 @@ def trace_memory(arch_id: str, shape_id: str, mesh, *, cfg: ArchConfig | None = 
 def trace_dryrun(arch_id: str, shape_id: str, mesh, *, cfg: ArchConfig | None = None,
                  device="cuda") -> tuple[Traced, str]:
     """The dry-run's trace of a step, the time scans cut to
-    ``mamba2.TIME_CHUNK`` steps.  Its costs come from a trace with
-    attention unchunked (one [S, S] block, as the costing and the
-    reference's cost analysis count it) wherever a rank runs more than
-    one query chunk: a chunk's plan differs from GSPMD's where the keys
-    are split over the sequence and the queries are not (stablelm-12b,
-    mixtral-8x7b, qwen2-vl-72b).  Its memory comes from the trace with
-    query chunks, as the step runs, over every time step
-    (``trace_memory``).  Returns the trace and how its memory was found."""
+    ``mamba2.TIME_CHUNK`` steps, with attention in query chunks as the
+    step runs it: one trace gives the costs, the collectives and the
+    memory, since a chunked trace keeps the unchunked one's plan
+    (``_own_query_chunks``).  Where the time scans are cut, the memory over
+    every time step comes from ``trace_memory``.  Returns the trace and how
+    its memory was found."""
     cfg = cfg or get_config(arch_id)
     shape = get_shape(shape_id)
     tr = trace_step(arch_id, shape_id, mesh, cfg=cfg, device=device)
     if tr.skip_reason:
         return tr, ""
-    memory, method = tr.memory, ("every time step traced" if tr.time_steps_traced else "")
     if tr.time_steps_traced not in (None, 1, shape.seq_len):
-        memory, method = trace_memory(arch_id, shape_id, mesh, cfg=cfg, device=device)
-    if tr.query_chunked:
-        with dense_attention_for_costing():
-            tr = trace_step(arch_id, shape_id, mesh, cfg=cfg, device=device)
-        method = "; ".join(x for x in (method, "costs from a trace of unchunked attention") if x)
-    tr.memory = memory
-    return tr, method
+        tr.memory, method = trace_memory(arch_id, shape_id, mesh, cfg=cfg, device=device)
+        return tr, method
+    return tr, ("every time step traced" if tr.time_steps_traced else "")
 
 
 # one H100's memory (80 GB HBM3), the "fits?" line of the memory analysis

@@ -33,6 +33,7 @@ from repro_torch.launch.mesh import fake_world, make_mesh  # noqa: E402
 from repro_torch.roofline.memory import LiveMemoryMode, local_tensors  # noqa: E402
 
 MESHES = {"1x1": ((1, 1), ("data", "model")), "2x4": ((2, 4), ("data", "model")),
+          "1x16": ((1, 16), ("data", "model")),
           "16x16": ((16, 16), ("data", "model")),
           "2x16x16": ((2, 16, 16), ("pod", "data", "model"))}
 
