@@ -112,7 +112,12 @@ Phases, in order; each raises on failure and nothing is caught:
     (``[dryrun-query-chunks]`` lines): stablelm-12b, mixtral-8x7b and
     qwen2-vl-72b train_4k and prefill_32k at 1 layer on 16x16, traced with
     attention in query chunks and unchunked, FLOPs and wire bytes within
-    3%.  Then the memory check (``[memory-check]`` lines):
+    3%.  Every trace of the phase whose figures ``tools/dryrun_plans.py``
+    recorded on the CPU (``tools/dryrun_plans.json``: the five dry-run
+    pairs, the twelve query-chunk traces, and qwen2-0.5b decode_32k at 2
+    layers on 16x16, traced for it) has FLOPs, wire bytes and temp per
+    device within 1% of them on this torch (``[dryrun-torch-versions]``
+    lines; C-port8).  Then the memory check (``[memory-check]`` lines):
     qwen2-0.5b train and prefill and olmoe-1b-7b train at 2 layers, 4 x
     1024 tokens, each traced on a fake (1, 1) mesh and run once on the
     card; ``max_memory_allocated`` must lie within 10% of the predicted
@@ -1357,15 +1362,50 @@ DRYRUN_PAIRS = (("qwen2-0.5b", "train_4k", True), ("qwen2-0.5b", "prefill_32k", 
                 (MOE_ARCH, "train_4k", True))
 
 
+# the dry-run's plan must not depend on the torch version (C-port8): each
+# traced pair's per-device FLOPs, wire bytes and temp within PLAN_RTOL of the
+# figures tools/dryrun_plans.py recorded on the CPU (tools/dryrun_plans.json)
+PLAN_RTOL = 0.01
+
+
+def _plans():
+    """``tools/dryrun_plans.py`` as a module, and its recorded figures."""
+    tools = os.path.join(REPO, "tools")
+    if tools not in sys.path:
+        sys.path.insert(0, tools)
+    import dryrun_plans
+    with open(dryrun_plans.JSON_PATH) as f:
+        return dryrun_plans, json.load(f)
+
+
+def check_recorded_plan(name: str, got: dict, want: dict, recorded: dict) -> dict:
+    """One ``[dryrun-torch-versions]`` line: a trace's FLOPs, wire bytes and
+    temp per device on this torch against the figures recorded on
+    ``recorded['torch']``; raises where one is off by more than
+    ``PLAN_RTOL``."""
+    row = {"trace": name, "torch": torch.__version__, "recorded_torch": recorded["torch"]}
+    for k in ("flops", "wire", "temp"):
+        row[k], row["recorded_" + k] = got[k], want[k]
+        row[k + "_ratio"] = got[k] / want[k] if want[k] else None
+    log(f"[dryrun-torch-versions] {json.dumps(row)}")
+    for k in ("flops", "wire", "temp"):
+        if abs(got[k] - want[k]) > PLAN_RTOL * abs(want[k]):
+            raise AssertionError(f"{name}: {k} {got[k]} on torch {torch.__version__}, "
+                                 f"{want[k]} recorded on {recorded['torch']}")
+    return row
+
+
 def phase_dryrun(dev) -> list:
     """The port's dry-run (``launch.dryrun.run_one``) on fake tensors of the
     card's device type over a fake process group of 256 ranks (512 on the
     multi-pod mesh): one ``[dryrun]`` line per pair; each must be ``ok`` or
-    the reference's documented skip."""
+    the reference's documented skip, and an ``ok`` pair's FLOPs, wire bytes
+    and temp the recorded ones (``check_recorded_plan``)."""
     from repro_torch.configs import get_config, get_shape
     from repro_torch.launch.dryrun import run_one
     from repro_torch.launch.input_specs import skip_reason
     from repro_torch.roofline.analysis import model_flops
+    plans, recorded = _plans()
     results = []
     for arch, shape_id, multi_pod in DRYRUN_PAIRS:
         res = run_one(arch, shape_id, multi_pod=multi_pod, device=dev, verbose=False)
@@ -1374,6 +1414,12 @@ def phase_dryrun(dev) -> list:
         skip = skip_reason(get_config(arch), get_shape(shape_id))
         if not (res.status == "ok" or (res.status == "skipped" and res.reason == skip)):
             raise AssertionError(f"dry-run {arch} x {shape_id}: {res.status} {res.reason}")
+        if res.status == "ok":
+            name = plans.key(arch, shape_id, res.mesh, None, "chunked")
+            check_recorded_plan(name, {"flops": res.flops,
+                                       "wire": sum(res.wire_bytes_per_device.values()),
+                                       "temp": res.peak_bytes_per_device},
+                                recorded["dryrun"][name], recorded)
         if res.status == "ok" and not (res.flops > 0 and res.collective_counts):
             raise AssertionError(f"dry-run {arch} x {shape_id}: no FLOPs or no collectives")
         if res.status == "ok" and res.replicated_ops:
@@ -1401,6 +1447,8 @@ def phase_dryrun(dev) -> list:
 QUERY_CHUNK_PAIRS = [(a, s) for a in ("stablelm-12b", "mixtral-8x7b", "qwen2-vl-72b")
                      for s in ("train_4k", "prefill_32k")]
 QUERY_CHUNK_RTOL = 0.03
+# the recorded pair whose plan no other trace of phase 18 covers
+DECODE_PLAN_PAIR = ("qwen2-0.5b", "decode_32k", "16x16", 2)
 
 
 def check_query_chunks(dev) -> list:
@@ -1409,11 +1457,14 @@ def check_query_chunks(dev) -> list:
     16x16 as the dry-run traces it (attention in query chunks) and with
     attention unchunked (``dense_attention_for_costing``).  Per-device
     FLOPs and wire bytes must agree within ``QUERY_CHUNK_RTOL``: the
-    chunks keep one block's plan."""
+    chunks keep one block's plan.  Each trace's FLOPs, wire bytes and temp
+    must be the recorded ones (``check_recorded_plan``), and so must those
+    of qwen2-0.5b decode_32k at 2 layers on 16x16, traced last."""
     from repro_torch.configs import get_config
     from repro_torch.launch.dryrun import trace_step
     from repro_torch.launch.mesh import fake_world, make_production_mesh
     from repro_torch.models.attention import dense_attention_for_costing
+    plans, recorded = _plans()
     rows = []
     for arch, shape_id in QUERY_CHUNK_PAIRS:
         cfg = dataclasses.replace(get_config(arch), n_layers=1)
@@ -1427,9 +1478,12 @@ def check_query_chunks(dev) -> list:
                 with attention():
                     tr = trace_step(arch, shape_id, mesh, cfg=cfg, device=dev)
                 row[name] = {"flops": tr.flops, "wire": sum(tr.wire.values()),
-                             "counts": tr.collective_counts,
+                             "temp": tr.memory.temp_bytes, "counts": tr.collective_counts,
                              "replicated_ops": tr.replicated_ops,
                              "seconds": time.perf_counter() - t0}
+                trace_name = plans.key(arch, shape_id, "16x16", 1, name)
+                check_recorded_plan(trace_name, row[name], recorded["traces"][trace_name],
+                                    recorded)
         c, u = row["chunked"], row["unchunked"]
         row["flops_ratio"], row["wire_ratio"] = c["flops"] / u["flops"], c["wire"] / u["wire"]
         log(f"[dryrun-query-chunks] {json.dumps(row)}")
@@ -1438,6 +1492,14 @@ def check_query_chunks(dev) -> list:
                                  f"{row['flops_ratio']} x the FLOPs and {row['wire_ratio']} x "
                                  f"the wire of one block")
         rows.append(row)
+    arch, shape_id, mesh_name, layers = DECODE_PLAN_PAIR
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    with fake_world(256):
+        tr = trace_step(arch, shape_id, make_production_mesh(device=dev), cfg=cfg, device=dev)
+    name = plans.key(arch, shape_id, mesh_name, layers, "chunked")
+    rows.append(check_recorded_plan(name, {"flops": tr.flops, "wire": sum(tr.wire.values()),
+                                           "temp": tr.memory.temp_bytes},
+                                    recorded["traces"][name], recorded))
     return rows
 
 

@@ -39,8 +39,22 @@ op run replicated):
   ``cache[:, slot] = row``) stays on the shard that holds it, as XLA's
   DynamicUpdateSlice does.  A matmul whose plan leaves a Partial sum
   GSPMD avoids gathers the keys, or reduce-scatters the Partial operand
-  (``_Reshard._matmul``), and a Partial input that DTensor all-reduces for
-  a pointwise op is reduce-scattered instead (``_scatter_targets``).
+  (``_Reshard._matmul``).
+  Where torch 2.11's and 2.13's DTensor plan an op differently (C-port8,
+  found op by op with ``tools/dryrun_plans.py``), the op is decided here,
+  the same way on both: an embedding lookup by sharded tokens moves the
+  table's vocab split onto its width first (``_lookup``); a copy of a
+  Partial sum (the reshape before the output projection) reduce-scatters
+  it (``_copy_layout``); a pointwise op with a Partial input, or with
+  two inputs split apart, takes one rule (``_pointwise_layout``: a
+  product of two Partial sums keeps the larger one's, the MoE combine's
+  outputs by their mask; ``_per_tensor`` for the optimizer's
+  ``_foreach_*`` ops); softmax, its backward and logsumexp
+  all-reduce their max and sums; top-k's backward scatters per shard
+  (``_scatter``); ``_foreach_norm`` (the card's gradient norm) reduces
+  each leaf as the CPU's per-leaf sum is traced (``_norms``).  A strided
+  input of a pointwise op keeps DTensor's plan, a Partial one
+  reduce-scattered where DTensor all-reduces it (``_scatter_targets``).
   Any other op DTensor cannot shard runs on replicated inputs, counted in
   ``replicated_ops``.  What a refused attempt recorded is dropped.
 * ``_rows_kept_matmuls``: a matmul of x [B, S, D] by w with the sequence
@@ -78,12 +92,11 @@ the temp is an upper bound on a fused program's.
 Known gaps (PERF.md): the two partitioners still pick different
 collectives (DTensor reduce-scatters and all-to-alls where GSPMD
 all-reduces and gathers), so counts differ while wire bytes agree within
-4x.  Torch 2.11's DTensor plans some ops unlike 2.13's, so collective
-counts still differ by torch version: the ops handled above take one path
-on both, but an embedding lookup keeps DTensor's plan where it moves the
-table by an all-to-all (2.13) and is partitioned here where DTensor
-gathers the table (2.11), and olmoe-1b-7b's expert FFN keeps ~6% more
-FLOPs per device on 2.11.
+4x.  The embedding lookup keeps torch 2.13's plan, not GSPMD's (which
+moves no table but takes decode's wire out of that band, ``_lookup``).
+Torch 2.11 and 2.13 give the same plan op by op for the pairs
+``tools/dryrun_plans.py`` records; an op those pairs do not run may still
+take DTensor's plan of its torch.
 
 The rwkv6 / zamba2 time loops launch ~7 ops per step and layer; the dry-run
 traces their first ``time_steps`` steps (``traced_time_steps``, recorded in
@@ -258,11 +271,16 @@ def _view_groups(src, dst) -> list[tuple[list[int], list[int]]] | None:
 
 
 def _dense(mesh, shape, placements, local: torch.Tensor) -> DTensor:
-    """A DTensor of global ``shape`` (contiguous) whose local shard is
-    ``local``."""
-    shape = tuple(shape)
-    return DTensor.from_local(local, mesh, list(placements), run_check=False, shape=shape,
-                              stride=torch.empty(shape, device="meta").stride())
+    """A DTensor of global ``shape`` whose local shard is ``local``, its
+    dims in the order of ``local``'s strides (contiguous where ``local``
+    is; an elementwise op's output keeps its inputs' memory order, and a
+    view of it must too)."""
+    order = sorted(range(local.ndim), key=lambda d: (-local.stride(d), d))
+    stride, step = [0] * local.ndim, 1
+    for d in reversed(order):
+        stride[d], step = step, step * shape[d]
+    return DTensor.from_local(local, mesh, list(placements), run_check=False,
+                              shape=tuple(shape), stride=tuple(stride))
 
 
 def _relabelled_view(x: DTensor, shape) -> DTensor | None:
@@ -386,12 +404,17 @@ def _reduces_sharded(x, dims) -> bool:
     return isinstance(x, DTensor) and bool(dims & _split_dims(x))
 
 
+def _all_reduced(x: DTensor) -> DTensor:
+    """``x`` with each Partial sum (or max) all-reduced, the rest as it is."""
+    return _to(x, [Replicate() if p.is_partial() else p for p in x.placements])
+
+
 def _logsumexp(x: DTensor, dims, keepdim: bool = False) -> DTensor:
     """logsumexp over a sharded dim, as GSPMD partitions it: a max and a
     sum of exponentials per shard, each all-reduced (DTensor's own strategy
-    gathers the whole input first)."""
-    m = x.amax(dims, keepdim=True)
-    out = (x - m).exp().sum(dims, keepdim=True).log() + m
+    gathers the whole input first; torch 2.13's reduce-scatters the sum)."""
+    m = _all_reduced(x.amax(dims, keepdim=True))
+    out = _all_reduced((x - m).exp().sum(dims, keepdim=True)).log() + m
     if not keepdim:     # one dim at a time: torch 2.11's DTensor has no squeeze.dims
         for d in sorted((d % x.ndim for d in dims), reverse=True):
             out = out.squeeze(d)
@@ -402,15 +425,48 @@ def _softmax(x: DTensor, dim: int, half_to_float: bool = False) -> DTensor:
     """softmax over a sharded dim, as GSPMD partitions it: the max and the
     sum of exponentials all-reduced, the output sharded as ``x`` (DTensor
     gathers the input first)."""
-    e = (x - x.amax(dim, keepdim=True)).exp()
-    return e / e.sum(dim, keepdim=True)
+    e = (x - _all_reduced(x.amax(dim, keepdim=True))).exp()
+    return e / _all_reduced(e.sum(dim, keepdim=True))
 
 
 def _softmax_backward(grad: DTensor, out: DTensor, dim: int, input_dtype) -> DTensor:
-    """softmax's backward, ``out * (grad - sum(grad * out, dim))``, as
-    elementwise ops and a reduction that keep the operands' shards (torch
-    2.11's DTensor gathers the scores of attention split over its queries)."""
-    return (out * (grad - (grad * out).sum(dim, keepdim=True))).to(input_dtype)
+    """softmax's backward, ``out * (grad - sum(grad * out, dim))``, on the
+    shards of the gradient's layout (the softmax output moved to it; a
+    Partial gradient all-reduced), the sum over a split ``dim`` a Partial
+    sum all-reduced.  Torch 2.11's DTensor gathers the scores of attention
+    split over its queries, and 2.11 and 2.13 move different operands."""
+    mesh, dim = grad.device_mesh, dim % grad.ndim
+    target = [Replicate() if p.is_partial() else p for p in grad.placements]
+    g, o = _to(grad, target).to_local(), _to(_as_dtensor(out, mesh), target).to_local()
+    summed = _dense(mesh, grad.shape[:dim] + (1,) + grad.shape[dim + 1:],
+                    [Partial() if isinstance(p, Shard) and p.dim == dim else p for p in target],
+                    (g * o).sum(dim, keepdim=True))
+    return _dense(mesh, grad.shape, target,
+                           (o * (g - _all_reduced(summed).to_local())).to(input_dtype))
+
+
+def _scatter(func, x, dim: int, index, src=None, **kwargs) -> DTensor | None:
+    """``x.scatter(dim, index, src)`` with ``index`` (and a tensor ``src``)
+    split only along other dims than ``dim``, and ``x`` replicated or a
+    local tensor (the zeros of top-k's backward), as GSPMD partitions the
+    scatter: ``x`` cut to the index's shards, each scattered on its own.
+    Torch 2.11 takes ``x`` as a local tensor and gathers the index and the
+    source.  None for any other layout."""
+    if not isinstance(index, DTensor):
+        return None
+    mesh, placements = index.device_mesh, list(index.placements)
+    dim %= index.ndim
+    x = _as_dtensor(x, mesh)
+    tensors = [index] + ([src] if isinstance(src, torch.Tensor) else [])
+    if any(p.is_partial() or isinstance(p, Shard) and p.dim == dim for p in placements) or \
+            not all(p.is_replicate() for p in x.placements) or any(
+                not isinstance(t, DTensor) or list(t.placements) != placements
+                or t.shape[p.dim] != x.shape[p.dim]
+                for t in tensors for p in placements if isinstance(p, Shard)):
+        return None
+    local = func(_to(x, placements).to_local(), dim, index.to_local(),
+                 src.to_local() if isinstance(src, DTensor) else src, **kwargs)
+    return _dense(mesh, x.shape, placements, local)
 
 
 def _select_row(x: DTensor, dim: int, index: int) -> DTensor:
@@ -537,6 +593,26 @@ def _index(x: DTensor, indices) -> DTensor | None:
     return _dense(x.device_mesh, tuple(idx[0].shape) + tuple(x.shape[k:]), out, picked)
 
 
+def _lookup(x: DTensor, indices) -> DTensor:
+    """``x[i0, ...]`` by sharded indices (an embedding lookup of a table
+    split over its vocab): each mesh dim splitting a looked-up dim moves
+    that split onto the table's last dim (an all-to-all of the table's
+    shard), then ``_index`` picks the rows, the indices gathered over the
+    mesh dims that split the table's last dim.  This is torch 2.13's
+    DTensor plan of the lookup, taken on every torch.  GSPMD's own plan
+    (the reference's HLO on (2, 4): the tokens all-gathered over 'data',
+    the picked rows all-reduced over 'model') moves no table, but traced
+    here it takes decode's wire bytes out of the 4x band around the
+    reference's (``tests/test_torch_roofline.py``), whose logits'
+    all-reduce in float32 is most of its wire."""
+    k = len(indices)
+    if k >= x.ndim:         # no dim to move the split onto: partitioned as it is
+        return _index(x, indices)
+    moved = [Shard(x.ndim - 1) if isinstance(p, Shard) and p.dim < k and
+             x.device_mesh.size(m) > 1 else p for m, p in enumerate(x.placements)]
+    return _index(_to(x, moved), indices)
+
+
 def _index_put(x: DTensor, indices, values, accumulate: bool = False,
                inplace: bool = False) -> DTensor | None:
     """``x[i0, i1, ...] = values`` (``+=`` with ``accumulate``) as GSPMD
@@ -595,6 +671,199 @@ def _index_put(x: DTensor, indices, values, accumulate: bool = False,
     x._local_tensor = local.index_put_(tuple(rows), v, accumulate)
     x._spec = target._spec
     return x
+
+
+def _copy_layout(x: DTensor) -> list:
+    """The layout of a copy of ``x`` (``clone``: the reshape before the
+    output projection copies a strided attention output): each mesh dim
+    holding a Partial sum reduce-scatters it onto the outermost dim whose
+    local size it divides and that no later mesh dim splits (the layout
+    torch 2.13's DTensor gives one attention block's output), or
+    all-reduces it where no dim qualifies."""
+    mesh, placements = x.device_mesh, list(x.placements)
+    local = list(x.to_local().shape)
+    for m, p in enumerate(placements):
+        if not p.is_partial() or mesh.size(m) == 1:
+            continue
+        later = {q.dim for q in placements[m + 1:] if isinstance(q, Shard)}
+        d = next((d for d, n in enumerate(local) if d not in later and n >= mesh.size(m)
+                  and n % mesh.size(m) == 0), None)
+        placements[m] = Replicate() if d is None else Shard(d)
+        if d is not None:
+            local[d] //= mesh.size(m)
+    return placements
+
+
+# pointwise ops linear in a Partial sum: the sums where every tensor input
+# is a Partial sum or replicated on that mesh dim, the products in their
+# largest Partial input (not a divisor) where the others are broadcasts of
+# it, the rest always
+_LINEAR_SUMS = {"add", "add_", "sub", "sub_"}
+_LINEAR_PRODUCTS = {"mul", "mul_", "div", "div_"}
+_LINEAR_UNARY = {"neg", "neg_", "positive"}
+
+
+def _kept_partials(name: str, args, partials: list, mesh_dim: int) -> set | None:
+    """The inputs of a pointwise op ``name`` that keep their Partial sums
+    on ``mesh_dim`` (positions; the others there are replicated), where the
+    op stays a Partial sum in them; None where it does not.  A product of
+    two Partial sums keeps the larger (the MoE combine's outputs by their
+    kept-slot mask: the mask is all-reduced)."""
+    ops = {args[i].placements[mesh_dim].reduce_op for i in partials}
+    if len(ops) > 1 or not ops <= {"sum", "avg"}:
+        return None
+    if name in _LINEAR_UNARY:
+        return set(partials)
+    if name in _LINEAR_SUMS:
+        tensors = [i for i, a in enumerate(args) if isinstance(a, torch.Tensor)]
+        linear = tensors == list(range(len(args))) and all(
+            not isinstance(args[i], DTensor) or args[i].placements[mesh_dim].is_partial()
+            or args[i].placements[mesh_dim].is_replicate() for i in tensors)
+        return set(partials) if linear else None
+    if name in _LINEAR_PRODUCTS:
+        big = max(partials, key=lambda i: args[i].numel())
+        if (big == 0 or name.startswith("mul")) and all(
+                args[i].numel() < args[big].numel() for i in partials if i != big):
+            return {big}
+    return None
+
+
+def _pointwise_layout(name: str, args, out_shape) -> tuple[dict, list] | None:
+    """The layout of a pointwise op with a Partial sum among its DTensor
+    inputs, or two inputs split apart, decided here as one rule on every
+    torch (2.11's and 2.13's DTensor differ: 2.11 all-reduces a Partial
+    scaled by a replicated scalar, reduce-scatters one multiplied by a
+    replicated tensor, moves the other of two inputs split apart, ...):
+    (placements of each input, placements of the output).  On each mesh
+    dim holding a Partial input: where the op is linear in it
+    (``_kept_partials``) and every input split there is smaller (a
+    broadcast operand, gathered), it stays a Partial sum; else it is
+    reduce-scattered into the largest split
+    input's shard, or onto the output's largest free dim, or all-reduced.
+    On any other mesh dim the output is split as its largest split input
+    (of two alike, the one split along the outer dim, as torch 2.13's
+    DTensor picks).  An in-place op keeps its output's layout unless that
+    is a Partial sum the op is not linear in.  None where an input is
+    strided."""
+    dts = {i: a for i, a in enumerate(args) if isinstance(a, DTensor)}
+    if any(_strided(a) for a in dts.values()):
+        return None
+    mesh = next(iter(dts.values())).device_mesh
+    inplace = name.endswith("_")
+    nd = len(out_shape)
+
+    def out_dim(a, d):          # the output dim of input dim d, None where broadcast
+        od = d + nd - a.ndim
+        return od if a.shape[d] == out_shape[od] else None
+
+    def in_dim(a, od):          # the input dim of output dim od, None where broadcast
+        d = od - nd + a.ndim
+        return d if d >= 0 and a.shape[d] == out_shape[od] else None
+
+    out, kept = [], {}
+    for m in range(mesh.ndim):
+        n = mesh.size(m)
+        partial = [i for i, a in dts.items() if a.placements[m].is_partial()]
+        split = sorted(((i, out_dim(a, a.placements[m].dim)) for i, a in dts.items()
+                        if isinstance(a.placements[m], Shard)
+                        and out_dim(a, a.placements[m].dim) is not None),
+                       key=lambda t: (-dts[t[0]].numel(), t[1]))
+        split = [(i, od) for i, od in split
+                 if all(in_dim(dts[j], od) is not None for j in partial)]
+        if inplace and not args[0].placements[m].is_partial():
+            p = args[0].placements[m]
+            out.append(Shard(out_dim(args[0], p.dim)) if isinstance(p, Shard) else p)
+            continue
+        if not partial:
+            out.append(Shard(split[0][1]) if split else Replicate())
+            continue
+        if n == 1:
+            out.append(Replicate())
+            continue
+        keep = _kept_partials(name, args, partial, m)
+        if keep is not None and all(dts[i].numel() < min(dts[j].numel() for j in keep)
+                                    for i, _ in split):
+            out.append(dts[min(keep)].placements[m])
+            kept[m] = keep
+            continue
+        if split:
+            out.append(Shard(split[0][1]))
+            continue
+        taken = {p.dim for p in out if isinstance(p, Shard)} | {
+            out_dim(a, q.dim) for a in dts.values() for q in a.placements
+            if isinstance(q, Shard)}
+        free = [od for od in range(nd) if od not in taken and out_shape[od] >= n
+                and all(in_dim(dts[j], od) is not None for j in partial)]
+        out.append(Shard(max(free, key=lambda od: out_shape[od])) if free else Replicate())
+
+    def layout(i, a):
+        target = []
+        for m, p in enumerate(out):
+            if isinstance(p, Partial):
+                target.append(p if i in kept[m] or name in _LINEAR_SUMS else Replicate())
+            elif isinstance(p, Shard):
+                d = in_dim(a, p.dim)
+                target.append(Replicate() if d is None else Shard(d))
+            else:
+                target.append(Replicate())
+        return target
+
+    return {i: layout(i, a) for i, a in dts.items()}, out
+
+
+def _split_apart(args) -> bool:
+    """Whether two DTensor inputs of a pointwise op are split over one mesh
+    dim along different dims of the output (one of them is moved)."""
+    dts = [a for a in args if isinstance(a, DTensor)]
+    nd = max(a.ndim for a in dts)
+    return any(len({p.dim + nd - a.ndim for a in dts for p in [a.placements[m]]
+                    if isinstance(p, Shard) and a.shape[p.dim] > 1}) > 1
+               for m in range(dts[0].device_mesh.ndim))
+
+
+def _pointwise(func, args, kwargs) -> DTensor | None:
+    """A pointwise op with a Partial sum among its DTensor inputs, or with
+    two inputs split apart (``_split_apart``), laid out by
+    ``_pointwise_layout`` and run on the local shards; None for any other,
+    whose layout is left to DTensor."""
+    if not any(isinstance(a, DTensor) and any(p.is_partial() for p in a.placements)
+               for a in args) and not _split_apart(args):
+        return None
+    name = func._overloadpacket.__name__
+    mesh = next(a for a in args if isinstance(a, DTensor)).device_mesh
+    # a local tensor of more than one element takes part as a replicated one
+    args = [_as_dtensor(a, mesh) if isinstance(a, torch.Tensor) and a.ndim else a
+            for a in args]
+    shapes = [a.shape for a in args if isinstance(a, torch.Tensor)]
+    out_shape = tuple(args[0].shape) if name.endswith("_") else \
+        tuple(torch.broadcast_shapes(*shapes))
+    got = _pointwise_layout(name, args, out_shape)
+    if got is None:
+        return None
+    targets, placements = got
+    moved = [_to(a, targets[i]) if i in targets else a for i, a in enumerate(args)]
+    local = func(*[a.to_local() if isinstance(a, DTensor) else a for a in moved], **kwargs)
+    if not name.endswith("_"):
+        return _dense(mesh, out_shape, placements, local)
+    x = args[0]
+    x._local_tensor, x._spec = moved[0]._local_tensor, moved[0]._spec
+    return x
+
+
+def _per_tensor(func, args) -> tuple | None:
+    """The single-tensor op of a ``_foreach_*`` op and each tensor's
+    arguments, or None."""
+    name = func._overloadpacket.__name__
+    if not name.startswith("_foreach_") or name == "_foreach_norm":
+        return None
+    base = getattr(torch.ops.aten, name[len("_foreach_"):], None)
+    op = getattr(base, {"List": "Tensor", "ScalarList": "Scalar", "Tensor": "Tensor",
+                        "Scalar": "Scalar", "default": "default"}.get(func._overloadname, ""),
+                 None)
+    if op is None:
+        return None
+    n = len(next(a for a in args if isinstance(a, (list, tuple))))
+    return op, [[a[k] if isinstance(a, (list, tuple)) else a for a in args] for k in range(n)]
 
 
 def _searchsorted(seq, values, **kwargs) -> DTensor:
@@ -672,11 +941,10 @@ class _Reshard(TorchDispatchMode):
 
     def _scatter_targets(self, args, mark) -> dict | None:
         """Where DTensor all-reduced a Partial input of a pointwise op since
-        ``mark`` (torch 2.11's plan of an expert FFN's gated hidden, which
-        leaves every data rank with the whole FFN): {arg index: placements}
-        with each Partial of that arg reduce-scattered onto its largest free
-        dim instead, as 2.13 and GSPMD keep it split; None where nothing
-        was."""
+        ``mark`` (the ops ``_pointwise`` leaves to DTensor: a strided
+        input): {arg index: placements} with each Partial of that arg
+        reduce-scattered onto its largest free dim instead, as GSPMD keeps
+        it split; None where nothing was."""
         targets = {}
         for i, a in enumerate(args):
             if not (isinstance(a, DTensor) and any(p.is_partial() for p in a.placements)
@@ -692,6 +960,26 @@ class _Reshard(TorchDispatchMode):
                     taken.add(d)
             targets[i] = placements
         return targets or None
+
+    @staticmethod
+    def _norms(tensors) -> list:
+        """``torch._foreach_norm`` of DTensors (the card's global gradient
+        norm), as the CPU's sum of squares per leaf is traced: each Partial
+        leaf laid out as ``leaf * leaf`` lays it out (``_pointwise_layout``),
+        squared and summed on its shard, that sum all-reduced and its root
+        taken.  Torch 2.11's DTensor all-reduces every Partial leaf whole."""
+        out = []
+        for t in tensors:
+            if any(p.is_partial() for p in t.placements):
+                layout = _pointwise_layout("mul", [t, t], tuple(t.shape))
+                if layout is not None:
+                    t = _to(t, layout[0][0])
+            local = t.to_local()
+            total = _dense(t.device_mesh, (), [Partial() if isinstance(p, (Shard, Partial))
+                                                else p for p in t.placements],
+                           torch.sum(local * local))
+            out.append(_all_reduced(total).sqrt())
+        return out
 
     @staticmethod
     def _scattered(args, targets: dict) -> list:
@@ -731,29 +1019,20 @@ class _Reshard(TorchDispatchMode):
         return func(_to(a, fix_a), _to(b, fix_b))
 
     def _index(self, func, x: DTensor, indices):
-        """An advanced index: replicated indices (the MoE dispatch's, from a
-        sort) are partitioned as GSPMD partitions a gather (``_index``);
-        sharded ones (an embedding's tokens) take DTensor's plan unless it
-        gathers ``x`` (torch 2.11 gathers the vocab-split table, 2.13 moves
-        its shard with an all-to-all)."""
+        """An advanced index by integer tensors over the leading dims,
+        decided here whatever plan DTensor has for it (torch 2.11's gathers
+        a vocab-split table, 2.13's moves its shard): replicated indices
+        (the MoE dispatch's, from a sort) are partitioned as GSPMD
+        partitions a gather (``_index``); sharded ones (an embedding's
+        tokens) look up a table whose looked-up dims are split by moving
+        those splits onto its last dim first (``_lookup``).  Other indices
+        take DTensor's plan."""
         got = _index_layout(x, indices)
-        if got is not None and all(p.is_replicate() for p in got[1]):
+        if got is None:
+            return func(x, indices)
+        if all(p.is_replicate() for p in got[1]):
             return _index(x, indices)
-        mark = self._mark()
-        local = tensor_bytes(x.to_local())
-        try:
-            out = func(x, indices)
-            if not any(op.kind == "all-gather" and op.in_bytes == local
-                       for op in self.rec.ops[mark[0]:]):
-                return out
-        except (RuntimeError, NotImplementedError) as e:
-            if not _sharding_failure(e):
-                raise
-        self._roll_back(mark)
-        out = _index(x, indices)
-        if out is None:
-            raise RuntimeError(f"{func} has no layout for these indices")
-        return out
+        return _lookup(x, indices)
 
     def _gather(self, func, x: DTensor, dim: int, index, **kwargs):
         """A gather along a sharded dim, as GSPMD partitions it: each shard
@@ -819,9 +1098,33 @@ class _Reshard(TorchDispatchMode):
             return self._index(func, *args)
         if func is torch.ops.aten._softmax_backward_data.default and _split_dims(args[1]):
             return _softmax_backward(*args)
+        if func in (torch.ops.aten.scatter.src, torch.ops.aten.scatter.value):
+            out = _scatter(func, *args, **kwargs)
+            if out is not None:
+                return out
         if func in (torch.ops.aten.bmm.default, torch.ops.aten.mm.default) and \
                 all(isinstance(a, DTensor) for a in args):
             return self._matmul(func, *args)
+        if func is torch.ops.aten.clone.default and isinstance(args[0], DTensor) and \
+                any(p.is_partial() for p in args[0].placements):
+            return func(_to(args[0], _copy_layout(args[0])), *args[1:], **kwargs)
+        if func is torch.ops.aten._foreach_norm.Scalar and args[1:] in ((), (2,)) and \
+                not kwargs and all(isinstance(t, DTensor) for t in args[0]):
+            return self._norms(args[0])
+        if torch.Tag.pointwise in func.tags:
+            out = _pointwise(func, args, kwargs)
+            if out is not None:
+                return out
+        per_tensor = _per_tensor(func, args)
+        if per_tensor is not None and any(
+                isinstance(t, DTensor) and any(p.is_partial() for p in t.placements)
+                for t in tree_leaves(args)):
+            op, each = per_tensor
+            outs = []
+            for a in each:
+                out = _pointwise(op, a, kwargs)
+                outs.append(op(*a, **kwargs) if out is None else out)
+            return outs if func._schema.returns else None
         mark = self._mark()
         try:
             out = func(*args, **kwargs)
@@ -1001,10 +1304,9 @@ def _all_to_all_on_cpu_meshes():
     def all_to_all(input, gather_dim, shard_dim, mesh, mesh_dim):
         if mesh.device_type != "cpu":
             return original(input, gather_dim, shard_dim, mesh, mesh_dim)
-        from torch.distributed._functional_collectives import (_group_or_group_name,
-                                                                _resolve_group)
-        group = _group_or_group_name(_resolve_group((mesh, mesh_dim)))
-        return torch.ops._dtensor.shard_dim_alltoall(input, gather_dim, shard_dim, group)
+        # the group by its name, which the op takes on every torch this runs on
+        return torch.ops._dtensor.shard_dim_alltoall(input, gather_dim, shard_dim,
+                                                     mesh.get_group(mesh_dim).group_name)
 
     with contextlib.ExitStack() as stack:
         for m in (dt._collective_utils, dt.placement_types):
