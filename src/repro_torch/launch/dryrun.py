@@ -82,10 +82,12 @@ op run replicated):
   (``trace_dryrun``; ``tests/test_torch_query_chunks.py`` holds it
   against the reference on (1, 16) and against unchunked on 16x16).
 
-Memory (``trace_memory``): a redistribution kept for reuse lives while
-its source does (XLA's CSE keeps it to its last use, so this is an upper
-bound); what a refused attempt allocated is forgotten; a time scan cut to
-n steps is traced at two lengths and its temp extrapolated to every step.
+Memory (``trace_memory``): a redistribution kept for reuse is freed
+just after the last op that reads it, as XLA frees the one buffer its CSE
+leaves after its last use (the memo keeps it as long as its source
+lives); what a refused attempt allocated or read is forgotten; a time
+scan cut to n steps is traced at two lengths and its temp extrapolated
+to every step.
 Eager ops allocate what XLA would fuse (the float32 casts of the loss), so
 the temp is an upper bound on a fused program's.
 
@@ -133,7 +135,7 @@ import torch.nn.functional as F
 from torch._subclasses.fake_tensor import FakeTensorMode
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import implicit_replication
-from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._python_dispatch import TorchDispatchMode, _get_current_dispatch_mode_stack
 from torch.utils._pytree import tree_map_only
 
 from repro_torch.compat import resolve_device
@@ -323,6 +325,68 @@ def _relabelled_view(x: DTensor, shape) -> DTensor | None:
     return None
 
 
+def _made_anywhere_op(func) -> bool:
+    """Whether ``func`` keeps a tensor made anywhere so (``_MadeAnywhere``):
+    an elementwise op, a cast or a concatenation (a view shares its
+    input's storage, so it is made anywhere too)."""
+    return (torch.Tag.pointwise in func.tags
+            or func in (torch.ops.aten._to_copy.default, torch.ops.aten.cat.default))
+
+
+class _MadeAnywhere:
+    """The local storages of the rotary tables: tensors made from the
+    positions the model makes itself (an iota, laid out by ``ac(positions,
+    "positions")``) and from tensors every rank holds alike (plain ones),
+    by elementwise ops, casts and concatenations (``_made_anywhere_op``),
+    and their views.  XLA fuses such a chain into each reader (the
+    reference's HLO makes its cosines once per reader, each in that
+    reader's layout), so where a reader wants another layout the tensor is
+    made there: ``_ReusedRedistributions`` gives a buffer of the target's
+    local shape and records no collective.  Torch would gather it (the
+    backward's product of a gradient split otherwise than the table)."""
+
+    def __init__(self):
+        self._refs: dict[int, weakref.ref] = {}     # id(storage) -> weak ref to it
+
+    def add(self, t: torch.Tensor) -> None:
+        st = t.untyped_storage()
+        key = id(st)
+
+        def dead(ref, key=key):
+            if self._refs.get(key) is ref:
+                del self._refs[key]
+
+        self._refs[key] = weakref.ref(st, dead)
+
+    def __contains__(self, t: torch.Tensor) -> bool:
+        st = t.untyped_storage()
+        ref = self._refs.get(id(st))
+        return ref is not None and ref() is st
+
+    def __bool__(self) -> bool:
+        return bool(self._refs)
+
+
+def _positions_laid_out(ac, mesh):
+    """``ac``, for the duration of a trace (an active ``_Reshard``), laying
+    out the rotary positions the model makes (a plain tensor given to
+    ``ac(positions, "positions")``) as a replica on every rank, which
+    ``ac`` cuts to each rank's shard, and adding them to the trace's
+    ``_MadeAnywhere``.  Positions given in the batch are data, laid out
+    as they are."""
+    def laid_out(x, kind):
+        reshard = None
+        if kind == "positions" and not isinstance(x, DTensor):
+            reshard = next((m for m in _get_current_dispatch_mode_stack()
+                            if isinstance(m, _Reshard)), None)
+        if reshard is None:
+            return ac(x, kind)
+        out = ac(DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim, run_check=False), kind)
+        reshard.anywhere.add(out.to_local())
+        return out
+    return laid_out
+
+
 class _ReusedRedistributions:
     """For the duration, DTensor redistributes a local tensor from one
     layout to another once and reuses the result: eager DTensor
@@ -331,13 +395,20 @@ class _ReusedRedistributions:
     XLA's common-subexpression elimination keeps one collective per operand
     and layout (an operand written in place since is another operand).
     A result is kept while its source lives (no later call can name a dead
-    source), so the memory counts it that long; a redistribution that moves
-    nothing (a mesh dim of one rank) returns its input and is not kept.
-    ``mark`` / ``roll_back`` drop what a refused attempt added."""
+    source), but XLA frees a buffer after its last use: the trace's memory
+    (``mem``, which ``_Reshard`` sets to its own) frees a result's buffer
+    just after the last op that reads it, a hit's reader included
+    (``LiveMemoryMode.keep``).  A redistribution that moves nothing (a mesh
+    dim of one rank) returns its input and is not kept; one of a tensor
+    made anywhere (``anywhere``, ``_Reshard``'s) is made in the target's
+    layout, moving nothing.  ``mark`` / ``roll_back`` drop what a refused
+    attempt added."""
 
     _MODULES = ("_dispatch", "_redistribute", "_api")
 
     def __init__(self):
+        self.mem = LiveMemoryMode()
+        self.anywhere = _MadeAnywhere()
         self.memo: dict = {}
         self.added: list = []       # (memo key, source placements, target placements)
 
@@ -376,9 +447,17 @@ class _ReusedRedistributions:
             hit = self.memo.get(key)
             if hit is not None and hit[0]() is local_tensor:
                 return hit[1]
-            out = original(local_tensor, current_spec, target_spec, *args, **kwargs)
+            since = self.mem.mark()[1]
+            if local_tensor in self.anywhere:   # made where it is read, moving nothing
+                out = local_tensor.new_empty(_local_shape(target_spec.shape,
+                                                          target_spec.placements,
+                                                          target_spec.mesh))
+                self.anywhere.add(out)
+            else:
+                out = original(local_tensor, current_spec, target_spec, *args, **kwargs)
             if out is local_tensor:     # nothing moved (a mesh dim of size 1)
                 return out
+            self.mem.keep(out, since)
             # the entry goes with its source, which no later call can name
             self.memo[key] = (weakref.ref(local_tensor, functools.partial(self._dead, key)), out)
             self.added.append((key, tuple(current_spec.placements),
@@ -888,6 +967,8 @@ class _Reshard(TorchDispatchMode):
         super().__init__()
         self.rec, self.cost, self.reuse = rec, cost, reuse
         self.mem = mem if mem is not None else LiveMemoryMode()
+        self.anywhere = _MadeAnywhere()     # the rotary tables (``_positions_laid_out``)
+        reuse.mem, reuse.anywhere = self.mem, self.anywhere
         self.replicated_ops: dict[str, int] = {}
         self.rows = weakref.WeakValueDictionary()   # id -> row of a sharded dim
 
@@ -1069,6 +1150,18 @@ class _Reshard(TorchDispatchMode):
         kwargs = kwargs or {}
         if not on_dtensors(types):
             return func(*args, **kwargs)
+        out = self._dispatch(func, args, kwargs)
+        anywhere = self.anywhere
+        if anywhere and _made_anywhere_op(func):
+            inputs = [a for a in tree_leaves([args, kwargs]) if isinstance(a, DTensor)]
+            if inputs and all(a._local_tensor in anywhere for a in inputs):
+                for t in tree_leaves(out):
+                    if isinstance(t, DTensor):
+                        anywhere.add(t._local_tensor)
+        return out
+
+    def _dispatch(self, func, args, kwargs):
+        """An op on DTensors, laid out as GSPMD would where DTensor would not."""
         if func._overloadpacket.__name__ in _VIEWS and isinstance(args[0], DTensor):
             return self._view(func, args, kwargs)
         if func is torch.ops.aten.gather.default and isinstance(args[0], DTensor):
@@ -1211,6 +1304,48 @@ def _sharded_gathers():
 
     with mock.patch.object(torch, "gather", gather), \
             mock.patch.object(torch.Tensor, "gather", gather):
+        yield
+
+
+class _ShardedMean(torch.autograd.Function):
+    """``x.mean()`` of a DTensor split over the mesh (the loss's mean over
+    its batch and sequence), whose gradient is laid out as its input, as
+    GSPMD lays out the broadcast of the mean's backward: each rank divides
+    the gradient over its own shard (replicated where the input is a
+    Partial sum).  Autograd's ``mean_backward`` expands the gradient to the
+    input's global shape, which DTensor lays out replicated: a whole
+    float32 [batch, sequence] on every rank."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.layout = (x.shape, [Replicate() if p.is_partial() else p for p in x.placements],
+                      x.device_mesh, x.numel(), tuple(x.to_local().shape))
+        return _torch_mean(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        shape, placements, mesh, n, local_shape = ctx.layout
+        if not isinstance(grad, DTensor) or not all(p.is_replicate() for p in grad.placements):
+            return grad.expand(shape) / n
+        return _dense(mesh, shape, placements, grad.to_local().expand(local_shape) / n)
+
+
+_torch_mean = torch.mean
+
+
+@contextlib.contextmanager
+def _sharded_means():
+    """For the duration, ``torch.mean`` and ``Tensor.mean`` of a whole
+    DTensor split over the mesh, with its gradient wanted, go through
+    ``_ShardedMean`` (patched, not caught by a mode: the gradient's layout
+    is autograd's)."""
+    def mean(x, *args, **kwargs):
+        if args or kwargs or not (isinstance(x, DTensor) and x.requires_grad and _split_dims(x)
+                                  and torch.is_grad_enabled()):
+            return _torch_mean(x, *args, **kwargs)
+        return _ShardedMean.apply(x)
+
+    with mock.patch.object(torch, "mean", mean), mock.patch.object(torch.Tensor, "mean", mean):
         yield
 
 
@@ -1431,6 +1566,7 @@ def tracing(time_steps: int | None = None):
         stack.enter_context(_marking_sharding_propagation())
         stack.enter_context(_rows_kept_matmuls())
         stack.enter_context(_sharded_gathers())
+        stack.enter_context(_sharded_means())
         stack.enter_context(mock.patch.object(attention, "query_chunks", _own_query_chunks))
         for mode in (rec, cost, mem, reshard):
             stack.enter_context(mode)
@@ -1446,6 +1582,8 @@ def build_step(arch_id: str, shape_id: str, mesh, *, cfg: ArchConfig | None = No
 
     ``cfg`` and ``shape`` override the registered ones (the costing pass
     traces depth-cut variants; ``chip_smoke.py`` costs its own shapes).
+    The rotary positions the step makes are laid out while ``tracing``
+    (``_positions_laid_out``).
     """
     cfg = cfg or get_config(arch_id)
     shape = shape or get_shape(shape_id)
@@ -1456,7 +1594,7 @@ def build_step(arch_id: str, shape_id: str, mesh, *, cfg: ArchConfig | None = No
     model = build_model(cfg)
     perf = perf or PerfOptions()
     rules = ShardingRules(mesh=mesh, dp=dp_axes(mesh))
-    ac = make_activation_constrainer(cfg, shape, rules, perf)
+    ac = _positions_laid_out(make_activation_constrainer(cfg, shape, rules, perf), mesh)
 
     def dist(tree, specs):
         return tree_map(lambda t, s: _distribute(t, s, mesh), tree, specs)

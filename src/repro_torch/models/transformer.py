@@ -243,7 +243,7 @@ def _build_decoder_lm(cfg: ArchConfig) -> Model:
         positions = batch.get("positions")
         if positions is None:
             positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
-        rope = make_rope(cfg, positions)
+        rope = make_rope(cfg, ac(positions, "positions"))
         ks, vs = [], []
         aux = torch.zeros((), device=x.device)
         recompute = remat and not want_cache and torch.is_grad_enabled()
@@ -388,7 +388,8 @@ def _build_zamba(cfg: ArchConfig) -> Model:
     def forward(params, batch, want_cache=False, remat=True, ac=identity_ac):
         x = ac(L.embed_tokens(cfg, params["embed"], batch["tokens"]), "hidden")
         B, S, _ = x.shape
-        rope = make_rope(cfg, torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S))
+        rope = make_rope(cfg, ac(torch.arange(S, dtype=torch.int32, device=x.device)
+                                 .expand(B, S), "positions"))
         recompute = remat and not want_cache and torch.is_grad_enabled()
         mamba, kvs = [], []
         for u in range(trip):

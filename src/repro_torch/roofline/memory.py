@@ -13,6 +13,10 @@ aten op of the trace and keeps the bytes a device would hold:
 * a storage is freed when a weak reference to it expires, which is when
   its last tensor dies: a Python temporary, a tensor autograd saved and
   frees with its graph, a checkpoint's recomputed tensor;
+* a storage marked ``keep`` (a redistribution the dry-run keeps for reuse,
+  one collective per operand and layout as XLA's CSE leaves it) is freed
+  just after the last op that reads it, as XLA frees a buffer after its
+  last use, however long the memo that keeps it lives;
 * only LOCAL storages count: the mode returns ``NotImplemented`` for an op
   on DTensors, so DTensor runs it and the mode sees the ops on this rank's
   shards (torch's ``MemTracker`` sizes a DTensor at its global shape), and
@@ -38,7 +42,7 @@ A device running the step eagerly holds at most argument + output - alias
 + temp bytes at once (outputs counted from their first byte on).
 
 ``mark`` / ``roll_back`` drop what a refused attempt of the dry-run's
-``_Reshard`` allocated: it never runs on a device.  An op output whose
+``_Reshard`` allocated and read: it never runs on a device.  An op output whose
 storage cannot be sized (a sparse or nested tensor) raises: no partial
 peak is reported.
 """
@@ -107,6 +111,9 @@ class LiveMemoryMode(TorchDispatchMode):
         self.events: list[tuple[int, int]] = []  # (serial, +bytes allocated / -bytes freed)
         self._arguments: set[int] = set()
         self._argument_bytes = 0
+        self._kept: dict[int, int] = {}          # id(storage) -> serial, kept and alive
+        self._last_read: dict[int, int] = {}     # kept serial -> len(events) after its last reader
+        self._reads: list[tuple[int, int]] = []  # (serial, the last read it replaced), to roll back
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         if on_dtensors(types):
@@ -117,7 +124,28 @@ class LiveMemoryMode(TorchDispatchMode):
             for t in tree_leaves(out):
                 if isinstance(t, torch.Tensor) and t.device.type != "meta":
                     self._record(t, func, tensor_bytes(t) if own else None)
+            if self._kept:
+                self._read((args, kwargs))
         return out
+
+    def keep(self, t: torch.Tensor, since: int) -> None:
+        """Free ``t``'s storage just after its last reader, not when it
+        dies, if it was recorded after serial ``since`` (``mark()[1]``): a
+        buffer made for a result kept for reuse, not a view of an older one."""
+        key = id(t.untyped_storage())
+        serial = self._serial_of.get(key)
+        if serial is not None and serial > since and serial in self._alive:
+            self._kept[key] = serial
+            self._reads.append((serial, self._last_read.get(serial, -1)))
+            self._last_read[serial] = len(self.events)
+
+    def _read(self, tree) -> None:
+        for t in tree_leaves(tree):
+            if isinstance(t, torch.Tensor) and t.device.type != "meta":
+                serial = self._kept.get(id(t.untyped_storage()))
+                if serial is not None:
+                    self._reads.append((serial, self._last_read[serial]))
+                    self._last_read[serial] = len(self.events)
 
     def _record(self, t: torch.Tensor, func=None, nbytes: int | None = None) -> int:
         """The serial of ``t``'s storage, recorded now at its ``nbytes``
@@ -152,19 +180,28 @@ class LiveMemoryMode(TorchDispatchMode):
         self._sizes.pop(serial, None)
         if self._serial_of.get(key) == serial:
             del self._serial_of[key]
+        if self._kept.get(key) == serial:
+            del self._kept[key]
         nbytes = self._alive.pop(serial, None)
         if nbytes is not None:
             self.events.append((serial, -nbytes))
 
-    def mark(self) -> tuple[int, int]:
-        return len(self.events), self._serial
+    def mark(self) -> tuple[int, int, int]:
+        return len(self.events), self._serial, len(self._reads)
 
-    def roll_back(self, mark: tuple[int, int]) -> None:
-        """Forget what was allocated since ``mark``, as if it never was: its
-        events go and its storages, while they live, count for nothing (a
-        later op that returns one records it anew).  Frees since ``mark``
-        of storages recorded before it stay."""
-        n, serial = mark
+    def roll_back(self, mark: tuple[int, int, int]) -> None:
+        """Forget what was allocated and read since ``mark``, as if it never
+        was: its events go and its storages, while they live, count for
+        nothing (a later op that returns one records it anew); a kept
+        storage's last reader is the one before ``mark`` again.  Frees since
+        ``mark`` of storages recorded before it stay."""
+        n, serial, reads = mark
+        for s, before in reversed(self._reads[reads:]):
+            if before < 0:
+                self._last_read.pop(s, None)
+            else:
+                self._last_read[s] = before
+        del self._reads[reads:]
         kept = [e for e in self.events[n:] if e[0] <= serial]
         del self.events[n:]
         self.events.extend(kept)
@@ -175,6 +212,8 @@ class LiveMemoryMode(TorchDispatchMode):
             st = ref() if ref is not None else None
             if st is not None and self._serial_of.get(id(st)) == s:
                 del self._serial_of[id(st)]
+            if st is not None and self._kept.get(id(st)) == s:
+                del self._kept[id(st)]
 
     def hold_arguments(self, tree) -> None:
         """Record the storages of the step's inputs as its arguments."""
@@ -187,17 +226,39 @@ class LiveMemoryMode(TorchDispatchMode):
         tensors must still be alive)."""
         outs = local_tensors(outputs)
         serials = [self._record(t) for t in outs]
+        events = self.timeline()
         return MemoryAnalysis(
             self._argument_bytes, sum(tensor_bytes(t) for t in outs),
             sum(tensor_bytes(t) for t, s in zip(outs, serials) if s in self._arguments),
-            self._peak(set(serials) | self._arguments),
-            self._argument_bytes + self._peak(self._arguments))
+            _peak(events, set(serials) | self._arguments),
+            self._argument_bytes + _peak(events, self._arguments))
 
-    def _peak(self, exclude: set[int]) -> int:
-        """The peak of the live bytes of the storages not in ``exclude``."""
-        live = peak = 0
-        for serial, delta in self.events:
-            if serial not in exclude:
-                live += delta
-                peak = max(peak, live)
-        return peak
+    def timeline(self) -> list[tuple[int, int]]:
+        """``events`` with each kept storage's free moved to just after its
+        last reader (a kept storage still alive is freed there too)."""
+        if not self._last_read:
+            return self.events
+        frees: dict[int, list[int]] = {}
+        for s, n in self._last_read.items():
+            frees.setdefault(n, []).append(s)
+        out, size = [], {}
+        for i, (serial, delta) in enumerate(self.events):
+            out.extend((s, -size.pop(s)) for s in frees.get(i, ()) if s in size)
+            if serial not in self._last_read:
+                out.append((serial, delta))
+            elif delta > 0:
+                size[serial] = delta
+                out.append((serial, delta))
+        out.extend((s, -size.pop(s)) for s in frees.get(len(self.events), ()) if s in size)
+        return out
+
+
+def _peak(events: list[tuple[int, int]], exclude: set[int]) -> int:
+    """The peak over ``events`` of the live bytes of the storages not in
+    ``exclude``."""
+    live = peak = 0
+    for serial, delta in events:
+        if serial not in exclude:
+            live += delta
+            peak = max(peak, live)
+    return peak

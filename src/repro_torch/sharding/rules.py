@@ -142,14 +142,13 @@ def _param_spec(names: list, shape: tuple, cfg: ArchConfig, rules: ShardingRules
         return _in_dim_tp(rules, shape)
     if last in ("wq", "wk", "wv") and is_attn:
         # TP on the head axis only when WHOLE heads divide the axis
-        heads = cfg.n_heads if last == "wq" else cfg.n_kv_heads
-        if heads % _axsize(rules.mesh, rules.tp) != 0:
+        if not heads_split(cfg.n_heads if last == "wq" else cfg.n_kv_heads, rules):
             spec = [None] * nd
             spec[nd - 2] = rules._ok(shape[nd - 2], rules.dp)
             return tuple(spec)
         return rules.matrix(shape, nd - 1, stacked=stacked)
     if last == "wo" and is_attn:
-        if cfg.n_heads % _axsize(rules.mesh, rules.tp) != 0:
+        if not heads_split(cfg.n_heads, rules):
             spec = [None] * nd
             spec[nd - 1] = rules._ok(shape[nd - 1], rules.dp)
             return tuple(spec)
@@ -163,6 +162,14 @@ def _param_spec(names: list, shape: tuple, cfg: ArchConfig, rules: ShardingRules
         spec[-1] = rules._ok(shape[-1], rules.tp)
         return tuple(spec)
     return rules.replicated(shape)
+
+
+def heads_split(heads: int, rules: ShardingRules) -> bool:
+    """Whether an attention projection of ``heads`` heads is split over
+    its heads on the TP axis: only when whole heads divide it.  Where the
+    queries' heads do not, their projection keeps the hidden's layout and
+    the queries stay split over the sequence."""
+    return heads % _axsize(rules.mesh, rules.tp) == 0
 
 
 def _in_dim_tp(rules: ShardingRules, shape) -> Spec:
@@ -215,6 +222,8 @@ def make_activation_constrainer(cfg: ArchConfig, shape: ShapeConfig, rules: Shar
             return x
         return x.redistribute(mesh, to_placements(spec, mesh))
 
+    queries_on_sequence = not heads_split(cfg.n_heads, rules)
+
     def ac(x, kind):
         if kind == "hidden_mid" and perf.light_resharding:
             return x    # one reshard point per block suffices
@@ -233,6 +242,15 @@ def make_activation_constrainer(cfg: ArchConfig, shape: ShapeConfig, rules: Shar
             bspec = rules.dp if batch_shardable else None
             vspec = rules.tp if v % tp_size == 0 else None
             return constrain(x, (bspec, None, vspec))
+        if kind == "positions":
+            # rotary positions [B, S] (M-RoPE's [3, B, S]): laid out as the
+            # rotated queries' batch and sequence, so each rank makes only
+            # its own cos / sin rows, as GSPMD propagates their layout back
+            # from the rotated q / k
+            s = x.shape[-1]
+            bspec = rules.dp if batch_shardable else None
+            sspec = rules.tp if (queries_on_sequence and s % tp_size == 0 and s > 1) else None
+            return constrain(x, (None,) * (x.ndim - 2) + (bspec, sspec))
         if kind == "expert":
             # DISABLED in the reference after measurement: every forced
             # sharding of the MoE capacity buffer regressed 3-12x under

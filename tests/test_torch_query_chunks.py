@@ -13,9 +13,13 @@ the output projection resolves the Partial as it does for one block.  A (2,
   train_4k: the chunked trace, as ``trace_dryrun`` runs it, has FLOPs
   within 3% of XLA's cost analysis of the reference compiled for 16 host
   devices with dense attention, wire bytes within 4x, no op run
-  replicated, and a temp within [0.5, 4] of the reference's chunked
-  ``memory_analysis()``; the temp traced as XLA's CPU backend runs bf16
-  dots (``XlaCpuDots``) is printed beside.
+  replicated, and a temp at most 4x the reference's chunked
+  ``memory_analysis()``.  Both traced again with float32 compute: the
+  port's temp within [0.8, 1.25] of the reference's.  XLA's CPU backend
+  holds most of a bf16 program's buffers in 32 bits (mixtral-8x7b's
+  reference temp is 488.8 GB in bf16, 455.2 GB in float32), where the
+  port holds bf16, so the bf16 ratio (printed) is no measure of the
+  lifetimes; in float32 neither side has anything to widen.
 * On 16x16 at 1 layer, eight pairs in which a rank runs more than one
   query chunk (``CHUNKED_PAIRS``): chunked and unchunked FLOPs and wire
   bytes within 3%.
@@ -31,7 +35,6 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from conftest import run_subprocess  # noqa: E402
-from test_torch_memory import XlaCpuDots  # noqa: E402
 from test_torch_roofline import COSTING_RTOL, WIRE_FACTOR  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
@@ -46,6 +49,7 @@ KV8_ARCHS = ["stablelm-12b", "mixtral-8x7b", "qwen2-vl-72b"]
 CHUNKED_PAIRS = [(a, s) for a in KV8_ARCHS for s in ("train_4k", "prefill_32k")] + [
     ("qwen2-0.5b", "prefill_32k"), ("olmoe-1b-7b", "train_4k")]
 MEMORY_BAND = (0.5, 4)
+F32_MEMORY_BAND = (0.8, 1.25)
 
 _REFERENCE_MESH116 = """
 import dataclasses, json
@@ -60,17 +64,20 @@ mesh = jax.make_mesh((1, 16), ("data", "model"), axis_types=(AxisType.Auto, Axis
 out = {}
 for arch in ARCHS:
     cfg = dataclasses.replace(get_config(arch), n_layers=1)
+    f32 = dataclasses.replace(cfg, compute_dtype="float32")
     with attention.dense_attention_for_costing():
         (fn, args, in_sh, out_sh), _ = build_step(arch, "train_4k", mesh, cfg=cfg, unroll=True)
         with mesh:
             compiled = jax.jit(fn, in_shardings=in_sh, out_shardings=out_sh).lower(*args).compile()
     text = compiled.as_text()
-    (fn, args, in_sh, out_sh), _ = build_step(arch, "train_4k", mesh, cfg=cfg)
-    with mesh:
-        temp = jax.jit(fn, in_shardings=in_sh, out_shardings=out_sh).lower(*args).compile() \\
-            .memory_analysis().temp_size_in_bytes
+    temp = {}
+    for name, c in (("temp", cfg), ("temp_f32", f32)):
+        (fn, args, in_sh, out_sh), _ = build_step(arch, "train_4k", mesh, cfg=c)
+        with mesh:
+            temp[name] = jax.jit(fn, in_shardings=in_sh, out_shardings=out_sh) \\
+                .lower(*args).compile().memory_analysis().temp_size_in_bytes
     out[arch] = {"flops": float(cost_analysis_dict(compiled).get("flops", 0.0)),
-                 "wire": hlo_parse.total_wire_bytes(text), "temp": temp}
+                 "wire": hlo_parse.total_wire_bytes(text), **temp}
 print("RESULT " + json.dumps(out))
 """
 
@@ -94,8 +101,8 @@ def _dryrun_traces(arch_id, shape_id, mesh):
 
 @pytest.fixture(scope="module")
 def mesh116():
-    """{arch: (chunked trace, its temp under XlaCpuDots, reference)} on
-    (1, 16); the reference's subprocess runs while the port traces."""
+    """{arch: (chunked trace, its temp with float32 compute, reference)}
+    on (1, 16); the reference's subprocess runs while the port traces."""
     with ThreadPoolExecutor(1) as pool:
         ref = pool.submit(run_subprocess, f"ARCHS = {KV8_ARCHS!r}\n" + _REFERENCE_MESH116,
                           n_devices=16)
@@ -105,10 +112,9 @@ def mesh116():
             with fake_world(16):
                 mesh = make_mesh((1, 16), ("data", "model"), device="cpu")
                 chunked = _dryrun_traces(arch_id, "train_4k", mesh)[0]
-                with mock.patch.object(dryrun, "LiveMemoryMode", XlaCpuDots):
-                    xla_cpu = dryrun.trace_step(arch_id, "train_4k", mesh, cfg=cfg,
-                                                device="cpu").memory.temp_bytes
-            port[arch_id] = chunked, xla_cpu
+                f32 = dryrun.trace_step(arch_id, "train_4k", mesh, device="cpu",
+                                        cfg=dataclasses.replace(cfg, compute_dtype="float32"))
+            port[arch_id] = chunked, f32.memory.temp_bytes
         line = next(x for x in ref.result().splitlines() if x.startswith("RESULT "))
     want = json.loads(line[len("RESULT "):])
     return {a: port[a] + (want[a],) for a in KV8_ARCHS}
@@ -116,18 +122,19 @@ def mesh116():
 
 @pytest.mark.parametrize("arch_id", KV8_ARCHS)
 def test_chunked_trace_on_1x16_against_reference(mesh116, arch_id):
-    got, xla_cpu, want = mesh116[arch_id]
+    got, f32, want = mesh116[arch_id]
     wire = sum(got.wire.values())
     print(f"{arch_id} x train_4k at 1 layer on (1, 16), chunked: FLOPs port/reference "
           f"{got.flops / want['flops']:.4f} ({got.flops:.4e} / {want['flops']:.4e}); wire "
           f"{wire / want['wire']:.4f} ({wire:.4e} / {want['wire']:.4e}); temp "
           f"{got.memory.temp_bytes / want['temp']:.4f} ({got.memory.temp_bytes} / "
-          f"{want['temp']}), {xla_cpu / want['temp']:.4f} with bf16 dots as XLA's CPU "
-          f"backend runs them ({xla_cpu})")
+          f"{want['temp']}), {f32 / want['temp_f32']:.4f} with float32 compute "
+          f"({f32} / {want['temp_f32']})")
     assert got.flops == pytest.approx(want["flops"], rel=COSTING_RTOL)
     assert want["wire"] / WIRE_FACTOR <= wire <= want["wire"] * WIRE_FACTOR
     assert got.replicated_ops == {}
-    assert MEMORY_BAND[0] <= got.memory.temp_bytes / want["temp"] <= MEMORY_BAND[1]
+    assert got.memory.temp_bytes / want["temp"] <= MEMORY_BAND[1]
+    assert F32_MEMORY_BAND[0] <= f32 / want["temp_f32"] <= F32_MEMORY_BAND[1]
 
 
 @pytest.fixture(scope="module")

@@ -62,10 +62,11 @@ class DescribedMemory(LiveMemoryMode):
 
 
 def live_at_peak(mem: DescribedMemory) -> dict[int, int]:
-    """{serial: bytes} live at the temp peak."""
+    """{serial: bytes} live at the temp peak (a kept redistribution freed
+    after its last reader, as the temp counts it: ``mem.timeline()``)."""
     skip = mem.outputs | mem._arguments
     live, now, peak, at = {}, 0, -1, {}
-    for serial, delta in mem.events:
+    for serial, delta in mem.timeline():
         if serial in skip:
             continue
         now += delta
