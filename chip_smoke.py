@@ -49,6 +49,20 @@ Phases, in order; each raises on failure and nothing is caught:
    B4's device, call and host times at the decode shape beside
    ``transpose(0, 1).contiguous()``'s and the decode forward's call ms; a
    float32 run at the same widths with no drops against a dense oracle.
+7b. The collectives with one rank per process (``collectives_procs``):
+   ``core.procgroup.spawn`` starts 4 processes on the card (every rank on
+   cuda:0: their kernels take turns by time slice), each launching only its
+   own rank of B3 (``b2b``, ``bcst_b2b``) and B4 (``b2b``, ``per_round``)
+   and storing into its peers' memory through CUDA IPC with system-scope
+   flags, at 64 KiB, 1 MiB and 64 MiB a rank in bf16 and f32; then 8
+   processes at 1 MiB (the paper's node size), and 6 for B4's rotation
+   pairing.  Every rank's result must be bit-equal to the numpy oracle and
+   to the emulated single launch on the same inputs; a failure on any rank
+   fails the run.  ``[procs]`` lines give each rank's call ms (bf16, median
+   of 5, all ranks released together by a gloo barrier): processes
+   time-sliced on one card, not an interconnect figure and not a speed
+   result.  The per-rank launches are counted in each process (set to 0
+   just before) and summed as ``launches_by_path["procs"]``.
 8. Serving olmoe-1b-7b at full width (16 layers, d_model 2048, 16 heads,
    64 experts, top-8, d_ff_expert 1024, capacity factor 1.25, vocab 50,304,
    bf16, random weights from a seed) with phase 4's batch, context, checks
@@ -136,9 +150,10 @@ Phases, in order; each raises on failure and nothing is caught:
     the ratio and the phase's B1/B3/B4 launches, in all and by twin (the
     counts set to 0 before each).
 20. One JSON line naming every ported kernel with its launches on its path
-    (phases 4, 8 and 13 for B1/B2, phase 7 for B3/B4, and phase 19's,
-    also given alone as ``launches_in_twins``; no kernel lies on the
-    training, recurrent or dry-run paths).
+    (phases 4, 8 and 13 for B1/B2, phases 7 and 7b for B3/B4, and phase
+    19's, also given alone as ``launches_in_twins``; B3/B4 also by path in
+    ``launches_by_path``, with the per-rank launches as ``procs``; no
+    kernel lies on the training, recurrent or dry-run paths).
 21. Last line: ``{"ok": true, "device": {...}}``.  A ``[phase] name s``
     line follows each phase with its wall seconds.
 
@@ -175,6 +190,12 @@ GATHERED = {"64KiB": 64 << 10, "1MiB": 1 << 20, "16MiB": 16 << 20, "256MiB": 256
 L2_BYTES = 50e6                              # H100 L2 cache
 MOE_ARCH, MOE_TOKENS = "olmoe-1b-7b", 512    # latte MoE: tokens per rank
 MOE_DECODE_TOKENS = 4                        # ... and at decode
+# one rank per process: (processes, sizes a rank, B3 variants, B4 variants)
+PROCS_RUNS = ((4, ("64KiB", "1MiB", "64MiB"), ("b2b", "bcst_b2b"), ("b2b", "per_round")),
+              (8, ("1MiB",), ("b2b", "bcst_b2b"), ("b2b", "per_round")),
+              (6, ("1MiB",), (), ("b2b", "per_round")))
+PROCS_BYTES = {"64KiB": 64 << 10, "1MiB": 1 << 20, "64MiB": 64 << 20}
+PROCS_REPS = 5
 TRAIN_B, TRAIN_S = 4, 1024                   # training: batch x sequence (4,096 tokens)
 EXACT_B, EXACT_S = 2, 256                    # the float32 card-vs-CPU step
 VLM_ARCH, VLM_LAYERS = "qwen2-vl-72b", 8      # 8 of 80 layers: 72.7 B params do not fit
@@ -924,6 +945,95 @@ def phase_collectives_path(dev) -> dict:
     return {"launches": launches, "ring_all_gather": b3, "all_to_all": b4}
 
 
+def _bits(t: torch.Tensor) -> np.ndarray:
+    """The raw bits of a bf16 / f32 tensor, on the host (the numpy oracle's
+    terms: bit-equal in either dtype)."""
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32).cpu().numpy()
+
+
+def _rank_call_ms(ranks, fn, reps: int) -> float:
+    """Median ms of one call of ``fn`` on this rank, every rank released
+    together by a gloo barrier, host clock to the end of a synchronise."""
+    times = []
+    for _ in range(reps):
+        ranks.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def procs_rank(ranks, sizes, ag_variants, aa_variants, seed) -> dict:
+    """One process of phase 7b: its rank of every B3 / B4 variant at each
+    size, in bf16 and f32, against the numpy oracle and the emulated single
+    launch on the same inputs (every rank makes the global inputs from
+    ``seed`` on its card); bf16 call ms."""
+    from repro_torch.kernels.ring_all_gather import ops as ag
+    from repro_torch.kernels.ring_all_to_all import ops as aa
+    n, my, dev = ranks.n, ranks.rank, ranks.device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    bad, call, checked = [], {}, 0
+    ag.launches_rank = aa.launches_rank = 0
+    for label in sizes:
+        for dtype in (torch.bfloat16, torch.float32):
+            rows = PROCS_BYTES[label] // n // (ROW * torch.finfo(dtype).bits // 8)
+            xs = _randn(g, (n, rows, ROW), dtype, dev)          # rank j's shard: xs[j]
+            xa = _randn(g, (n, n, rows, ROW), dtype, dev)       # rank j's chunks: xa[j]
+            oracles = {"ring_all_gather": _bits(xs).reshape(n * rows, ROW),
+                       "all_to_all": _bits(xa[:, my])}
+            cases = [("ring_all_gather", v, lambda v=v: ag.ring_all_gather_rank(xs[my], ranks, v),
+                      lambda v=v: ag.ring_all_gather(xs, v)[my]) for v in ag_variants]
+            cases += [("all_to_all", v, lambda v=v: aa.all_to_all_rank(xa[my], ranks, v),
+                       lambda v=v: aa.all_to_all(xa, v)[my]) for v in aa_variants]
+            for name, v, per_rank, emulated in cases:
+                got = per_rank()
+                if not np.array_equal(_bits(got), oracles[name]):
+                    bad.append(f"rank {my}: {name} {v} {label} {dtype} differs from numpy")
+                if not torch.equal(got, emulated()):
+                    bad.append(f"rank {my}: {name} {v} {label} {dtype} differs from the "
+                               f"emulated launch")
+                checked += 1
+                if dtype == torch.bfloat16:
+                    call[f"{name} {v} {label}"] = _rank_call_ms(ranks, per_rank, PROCS_REPS)
+            del xs, xa, oracles, cases
+            torch.cuda.empty_cache()
+    ag.check_ranks(ranks)
+    aa.check_ranks(ranks)
+    ag.check()
+    aa.check()
+    return {"bad": bad, "call_ms": call, "checked": checked,
+            "launches": {"ring_all_gather": ag.launches_rank, "all_to_all": aa.launches_rank}}
+
+
+def phase_collectives_procs(dev) -> dict:
+    """Phase 7b: B3 and B4 with one rank per process (``PROCS_RUNS``)."""
+    from repro_torch.core.procgroup import spawn
+    launches = {"ring_all_gather": 0, "all_to_all": 0}
+    for n, sizes, ag_variants, aa_variants in PROCS_RUNS:
+        t0 = time.perf_counter()
+        res = spawn(procs_rank, n, device=dev.type, args=(sizes, ag_variants, aa_variants, 20 + n),
+                    timeout_s=600)
+        bad = [b for r in res for b in r["bad"]]
+        if bad:
+            raise AssertionError(f"{n} processes: {bad[:8]}")
+        for r in res:
+            for name in launches:
+                launches[name] += r["launches"][name]
+        for name, variants in (("ring_all_gather", ag_variants), ("all_to_all", aa_variants)):
+            if variants and any(r["launches"][name] == 0 for r in res):
+                raise AssertionError(f"{n} processes: a rank never launched {name} per rank")
+        by_rank = {key: [r["call_ms"][key] for r in res] for key in res[0]["call_ms"]}
+        log(f"[procs] {n} processes on one card, one rank each (CUDA IPC, system-scope flags): "
+            f"{sum(r['checked'] for r in res)} results bit-equal to numpy and to the emulated "
+            f"launch; {time.perf_counter() - t0:.3f}s; per-rank launches "
+            f"{[r['launches'] for r in res]}")
+        log(f"[procs] {n} processes, bf16 call ms by rank (processes time-sliced on one card: "
+            f"not an interconnect figure and not a speed result): {json.dumps(by_rank)}")
+    return launches
+
+
 def phase_moe_exactness(dev) -> None:
     """float32 (TF32 off) latte MoE at full width with no drops against the
     dense oracle.  Capacity factor 8 = n_experts / top_k makes the local
@@ -1632,6 +1742,7 @@ def main() -> int:
     run("exact_" + ARCH, phase_exactness, dev, ARCH, seed=1)
     run("rank_kernels", check_rank_kernels, dev)
     path = run("collectives_path", phase_collectives_path, dev)
+    procs = run("collectives_procs", phase_collectives_procs, dev)
     run("moe_exact", phase_moe_exactness, dev)
     launches.update(path["launches"])
     moe_launches = run("serve_" + MOE_ARCH, phase_serving, dev, get_config(MOE_ARCH), seed=2)
@@ -1698,6 +1809,10 @@ def main() -> int:
                  "max_abs_err": row["max_abs_err"], "ms": row["kernel_ms"],
                  "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                  "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
+        if name in procs:
+            entry["launches_by_path"] = {"collectives_path": path["launches"][name],
+                                         "twins": twins.get(name, 0), "procs": procs[name]}
+            entry["launches"] += procs[name]
         if name == "paged_kv_gather":
             entry["launches_by_path"] = {
                 ARCH: launches[name] - moe_launches[name] - vlm_launches[name],

@@ -25,6 +25,7 @@ import tempfile
 import warnings
 
 from . import collectives as coll
+from .procgroup import ProcessRanks
 from .dma.dispatch import DispatchEntry, derive_dispatch
 from .dma.topology import Topology, mi300x_cluster, tpu_v5e_multislice, tpu_v5e_pod
 
@@ -236,11 +237,14 @@ class CommBackend:
                 StaleTablesWarning, stacklevel=4)
         return tpu_dispatch_tables(self.axis_devices)
 
-    def message_bytes(self, collective: str, xs) -> int:
+    def message_bytes(self, collective: str, xs, ranks=None) -> int:
         """The size the table is read at, as the reference computes it from
         one rank's operand: an all-gather counts the gathered bytes
-        (shard x axis_devices), the others the operand's bytes."""
-        size = xs[0].numel() * xs.element_size()
+        (shard x axis_devices), the others the operand's bytes.  ``xs`` is
+        rank-stacked, or this rank's operand when ``ranks`` is a
+        ``ProcessRanks``."""
+        one = xs if isinstance(ranks, ProcessRanks) else xs[0]
+        size = one.numel() * xs.element_size()
         return size * self.axis_devices if collective == "all_gather" else size
 
     def choose(self, collective: str, size: int) -> tuple[str, object]:
@@ -254,18 +258,22 @@ class CommBackend:
         return variant, impl.get(variant, ref)
 
     def _run(self, collective: str, xs, ranks):
-        return self.choose(collective, self.message_bytes(collective, xs))[1](xs, ranks)
+        return self.choose(collective, self.message_bytes(collective, xs, ranks))[1](xs, ranks)
 
     def all_gather(self, xs, ranks):
-        """xs [n, *shard] -> [n, n, *shard] (every rank's gathered copy)."""
+        """xs [n, *shard] -> [n, n, *shard] (every rank's gathered copy).
+        Over processes (``ProcessRanks``): this rank's x [*shard] -> [n,
+        *shard]."""
         return self._run("all_gather", xs, ranks)
 
     def all_to_all(self, xs, ranks):
-        """xs [n, n, *chunk] -> out[i, j] = xs[j, i]."""
+        """xs [n, n, *chunk] -> out[i, j] = xs[j, i].  Over processes: this
+        rank's x [n, *chunk] -> out[j] = rank j's x[this rank]."""
         return self._run("all_to_all", xs, ranks)
 
     def reduce_scatter(self, xs, ranks):
-        """xs [n, n, *chunk] addends -> [n, *chunk], row i = sum_e xs[e, i]."""
+        """xs [n, n, *chunk] addends -> [n, *chunk], row i = sum_e xs[e, i].
+        Not over processes yet: its renderings raise for a ``ProcessRanks``."""
         return self._run("reduce_scatter", xs, ranks)
 
     def all_reduce(self, xs, ranks):

@@ -26,6 +26,15 @@ CUDA the whole collective is one launch of the hand-written kernel, whose
 schedule is the same ring or pairing.  The ``reference_*`` functions are one
 PyTorch call each, the counterpart of XLA's one-shot collectives (the
 reference backend of ``CommBackend``), not the kernels' plain versions.
+
+One rank per process: ``ring_all_gather``, ``bidir_ring_all_gather`` and
+``pairwise_all_to_all`` also take a ``core.procgroup.ProcessRanks`` and this
+rank's operand, exactly as the reference's functions are called inside
+``shard_map`` (``x [*shard] -> [n, *shard]``; ``x [n, *chunk] -> [n,
+*chunk]`` with ``out[j]`` rank j's chunk for this rank).  CUDA: one
+per-rank launch of B3 ``b2b`` / ``bcst_b2b`` or B4 ``b2b``, storing into
+peers' memory through CUDA IPC; CPU: the same schedules over gloo.  The
+reductions over processes are not ported yet (ROADMAP 10c).
 """
 from __future__ import annotations
 
@@ -34,6 +43,7 @@ import dataclasses
 import torch
 
 from repro_torch.compat import resolve_device
+from repro_torch.core.procgroup import ProcessRanks
 from repro_torch.kernels.ring_all_gather import ops as ag_ops
 from repro_torch.kernels.ring_all_to_all import ops as aa_ops
 
@@ -79,9 +89,26 @@ def _flat_shards(xs: torch.Tensor, lead: int) -> torch.Tensor:
     return xs.contiguous().reshape(*xs.shape[:lead], 1, -1)
 
 
-def ring_all_gather(xs: torch.Tensor, ranks: RankGroup) -> torch.Tensor:
+def _gather_rank(x: torch.Tensor, ranks: ProcessRanks, variant: str) -> torch.Tensor:
+    """This rank's shard [*shard] -> [n, *shard] through B3 per rank."""
+    out = ag_ops.ring_all_gather_rank(x.contiguous().reshape(1, -1), ranks, variant)
+    return out.reshape(ranks.n, *x.shape)
+
+
+def _all_to_all_rank(x: torch.Tensor, ranks: ProcessRanks, variant: str) -> torch.Tensor:
+    """This rank's chunks [n, *chunk] -> [n, *chunk] through B4 per rank."""
+    n = ranks.n
+    if x.dim() < 1 or x.shape[0] != n:
+        raise ValueError(f"expected a leading rank dim of size {n}, got {tuple(x.shape)}")
+    out = aa_ops.all_to_all_rank(x.contiguous().reshape(n, 1, -1), ranks, variant)
+    return out.reshape(x.shape)
+
+
+def ring_all_gather(xs: torch.Tensor, ranks: RankGroup | ProcessRanks) -> torch.Tensor:
     """b2b analogue.  xs [n, *shard] -> [n, n, *shard]: rank i's row j is
-    rank j's shard."""
+    rank j's shard.  Over processes: this rank's x [*shard] -> [n, *shard]."""
+    if isinstance(ranks, ProcessRanks):
+        return _gather_rank(xs, ranks, "b2b")
     ranks.check(xs)
     n = ranks.n
     if xs.device.type == "cuda":
@@ -99,8 +126,10 @@ def ring_all_gather(xs: torch.Tensor, ranks: RankGroup) -> torch.Tensor:
     return stacked[idx[:, None], order]
 
 
-def bidir_ring_all_gather(xs: torch.Tensor, ranks: RankGroup) -> torch.Tensor:
+def bidir_ring_all_gather(xs: torch.Tensor, ranks: RankGroup | ProcessRanks) -> torch.Tensor:
     """bcst analogue: both directions each step, ceil((n-1)/2) steps."""
+    if isinstance(ranks, ProcessRanks):
+        return _gather_rank(xs, ranks, "bcst_b2b")
     ranks.check(xs)
     n = ranks.n
     if xs.device.type == "cuda":
@@ -124,13 +153,16 @@ def bidir_ring_all_gather(xs: torch.Tensor, ranks: RankGroup) -> torch.Tensor:
     return stacked[idx[:, None], order]
 
 
-def pairwise_all_to_all(xs: torch.Tensor, ranks: RankGroup) -> torch.Tensor:
+def pairwise_all_to_all(xs: torch.Tensor, ranks: RankGroup | ProcessRanks) -> torch.Tensor:
     """swap analogue.  xs [n, n, *chunk] (xs[j, i] is rank j's chunk for
-    rank i) -> out[i, j] = xs[j, i].
+    rank i) -> out[i, j] = xs[j, i].  Over processes: this rank's x [n,
+    *chunk] -> [n, *chunk], out[j] = rank j's x[this rank].
 
     Round r exchanges chunk xs[i, i ^ r] with partner i ^ r (n a power of
     two), a symmetric pairwise swap; rotation pairing (i + r) otherwise.
     """
+    if isinstance(ranks, ProcessRanks):
+        return _all_to_all_rank(xs, ranks, "b2b")
     ranks.check(xs, lead=2)
     n = ranks.n
     if xs.device.type == "cuda":
@@ -163,6 +195,7 @@ def ring_reduce_scatter(xs: torch.Tensor, ranks: RankGroup) -> torch.Tensor:
     ``(i - r - 1) % n``.  Tensor code on every device: the reference has no
     kernel for it.
     """
+    _not_over_processes(ranks)
     ranks.check(xs, lead=2)
     n = ranks.n
     idx = torch.arange(n, device=xs.device)
@@ -173,28 +206,53 @@ def ring_reduce_scatter(xs: torch.Tensor, ranks: RankGroup) -> torch.Tensor:
     return acc
 
 
+def _not_over_processes(ranks) -> None:
+    if isinstance(ranks, ProcessRanks):
+        raise NotImplementedError("reduce-scatter and all-reduce over processes are not "
+                                  "ported yet (ROADMAP 10c)")
+
+
 def ring_all_reduce(xs: torch.Tensor, ranks: RankGroup) -> torch.Tensor:
     """Ring reduce-scatter + ring all-gather.  xs [n, n, *chunk] -> [n, n,
     *chunk], every rank's copy of ``out[j] = sum_e xs[e, j]``."""
     return ring_all_gather(ring_reduce_scatter(xs, ranks), ranks)
 
 
-def reference_all_gather(xs: torch.Tensor, ranks: RankGroup) -> torch.Tensor:
+def reference_all_gather(xs: torch.Tensor, ranks: RankGroup | ProcessRanks) -> torch.Tensor:
+    """One-shot all-gather.  Over processes: gloo's ``all_gather`` on the
+    CPU; on the card, where the port uses no library collective, B3
+    ``pcpy`` per rank (every step synced, the paper's parallel copies)."""
+    if isinstance(ranks, ProcessRanks):
+        if xs.device.type == "cuda":
+            return _gather_rank(xs, ranks, "pcpy")
+        out = [torch.empty_like(xs) for _ in range(ranks.n)]
+        torch.distributed.all_gather(out, xs.contiguous(), group=ranks.group)
+        return torch.stack(out)
     ranks.check(xs)
     return xs.unsqueeze(0).expand(ranks.n, *xs.shape).contiguous()
 
 
-def reference_all_to_all(xs: torch.Tensor, ranks: RankGroup) -> torch.Tensor:
+def reference_all_to_all(xs: torch.Tensor, ranks: RankGroup | ProcessRanks) -> torch.Tensor:
+    """One-shot all-to-all.  Over processes: gloo's ``all_to_all_single``
+    on the CPU; on the card B4 ``per_round`` per rank."""
+    if isinstance(ranks, ProcessRanks):
+        if xs.device.type == "cuda":
+            return _all_to_all_rank(xs, ranks, "per_round")
+        out = torch.empty_like(xs)
+        torch.distributed.all_to_all_single(out, xs.contiguous(), group=ranks.group)
+        return out
     ranks.check(xs, lead=2)
     return xs.transpose(0, 1).contiguous()
 
 
 def reference_reduce_scatter(xs: torch.Tensor, ranks: RankGroup) -> torch.Tensor:
     """Full sum over ranks; row i is rank i's chunk."""
+    _not_over_processes(ranks)
     ranks.check(xs, lead=2)
     return xs.sum(0)
 
 
 def reference_all_reduce(xs: torch.Tensor, ranks: RankGroup) -> torch.Tensor:
+    _not_over_processes(ranks)
     ranks.check(xs)
     return xs.sum(0, keepdim=True).expand(xs.shape).contiguous()

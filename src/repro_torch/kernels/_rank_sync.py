@@ -1,8 +1,8 @@
-"""Host side of the emulated-rank collective kernels (``csrc/rank_sync.cuh``).
+"""Host side of the rank collective kernels (``csrc/rank_sync.cuh``).
 
-A collective kernel takes a rank-stacked contiguous tensor (dim 0 is the
-rank) by its base pointer, and the CTAs per rank that the host chose for the
-call's shape: ``ring_parts`` for the ring all-gather, ``A2APlan`` for the
+Emulated ranks: a collective kernel takes a rank-stacked contiguous tensor
+(dim 0 is the rank) by its base pointer, and the CTAs per rank that the
+host chose for the call's shape: ``ring_parts`` for the ring all-gather, ``A2APlan`` for the
 all-to-all, each computed once per (n, chunk bytes, SM count) and cached, so
 a call neither queries the device nor repeats the choice.  Its flags live in
 a persistent buffer per (device, stream, n, parts, layout) that
@@ -10,6 +10,17 @@ a persistent buffer per (device, stream, n, parts, layout) that
 against which the kernel compares, so no call zeroes anything.  A wait that
 runs out of polls leaves a code in the library's error word (pinned host
 memory, read here without synchronising or calling into the library).
+
+One rank per process (``core.procgroup.ProcessRanks``): ``launch_rank``
+launches this rank's CTAs only.  Its outputs and flags live in symmetric
+buffers (``SymmetricBuffers``): each rank allocates its own once per (n,
+chunk bytes, parts, layout) with ``csrc/rank_ipc.cu``, the ranks exchange
+their CUDA IPC handles over the gloo group, and each opens its peers' once.
+Epochs count calls as above; the all-to-all alternates two slots (its
+kernel's header says why).  A call copies its result out of the symmetric
+output into a fresh tensor.  The error word stays per process:
+``check_error`` raises on the rank whose wait failed, and ``check_ranks``
+(collective) drops every rank's symmetric buffers after a failure anywhere.
 """
 from __future__ import annotations
 
@@ -167,22 +178,180 @@ class FlagBuffers:
         return len(self._bufs)
 
 
+class IPC:
+    """``csrc/rank_ipc.cu``: device memory shared between processes."""
+
+    def __init__(self):
+        lib = _build.load("rank_ipc")
+        vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        pp = ctypes.POINTER(ctypes.c_void_p)
+        for fn, args in (("alloc", [ll, i, pp]), ("free", [vp, i]), ("handle", [vp, i, vp]),
+                         ("open", [vp, i, pp]), ("close", [vp, i]),
+                         ("copy", [vp, vp, ll, i, vp]), ("handle_bytes", [])):
+            f = getattr(lib, f"rank_ipc_{fn}")
+            f.argtypes, f.restype = args, i
+            setattr(self, f"_{fn}", f)
+        self.handle_bytes = self._handle_bytes()
+
+    @staticmethod
+    def _ok(what: str, err: int) -> None:
+        if err:
+            raise RuntimeError(f"rank_ipc {what} failed: CUDA error {err}")
+
+    def alloc(self, nbytes: int, device: int) -> int:
+        ptr = ctypes.c_void_p()
+        self._ok("alloc", self._alloc(nbytes, device, ctypes.byref(ptr)))
+        return ptr.value
+
+    def free(self, ptr: int, device: int) -> None:
+        self._ok("free", self._free(ptr, device))
+
+    def handle(self, ptr: int, device: int) -> bytes:
+        buf = ctypes.create_string_buffer(self.handle_bytes)
+        self._ok("handle", self._handle(ptr, device, buf))
+        return buf.raw
+
+    def open(self, handle: bytes, device: int) -> int:
+        ptr = ctypes.c_void_p()
+        self._ok("open", self._open(handle, device, ctypes.byref(ptr)))
+        return ptr.value
+
+    def close(self, ptr: int, device: int) -> None:
+        self._ok("close", self._close(ptr, device))
+
+    def copy(self, dst: int, src: int, nbytes: int, device: int, stream: int) -> None:
+        self._ok("copy", self._copy(dst, src, nbytes, device, stream))
+
+
+@functools.cache
+def ipc() -> IPC:
+    return IPC()
+
+
+ALIGN = 256                      # bytes: every region of a symmetric buffer starts on it
+
+
+def _aligned(nbytes: int) -> int:
+    return -(-nbytes // ALIGN) * ALIGN
+
+
+@dataclasses.dataclass
+class Symmetric:
+    """One symmetric buffer set: every rank's allocation of ``slots`` x
+    (flags, output), as pointers in this process (peers' IPC-mapped), and
+    the calls made on it."""
+    own: int
+    bases: tuple[int, ...]       # every rank's allocation here (own at my)
+    opened: tuple[int, ...]      # the peers' mappings, to close
+    flag_bytes: int
+    out_bytes: int
+    stream: int
+    calls: int = 0
+
+    def slot(self, s: int) -> tuple[list[int], list[int]]:
+        """(flags, outputs) of every rank in slot s."""
+        at = s * (self.flag_bytes + self.out_bytes)
+        flags = [b + at for b in self.bases]
+        return flags, [f + self.flag_bytes for f in flags]
+
+
+class SymmetricBuffers:
+    """The per-rank symmetric buffers of one library, keyed by (n, output
+    bytes, parts, layout).  Making one is collective: every rank of the
+    group makes the same calls in the same order, so every rank takes the
+    same keys in the same order and every call's epoch agrees.  Calls on one
+    buffer set run on one stream (the ordering of its reuse rests on it)."""
+
+    def __init__(self, flag_ints, raises, slots: int):
+        self._flag_ints = flag_ints          # (n, parts) -> ints of one rank's region
+        self._raises = raises
+        self.slots = slots
+        self._bufs: dict[tuple, Symmetric] = {}
+
+    def take(self, ranks, out_bytes: int, parts: int, layout: int, stream: int):
+        """(buffer set, slot, epoch) of the next call; makes the set on
+        first use, and anew when an epoch would pass INT32_MAX."""
+        n = ranks.n
+        key = (n, out_bytes, parts, layout)
+        sym = self._bufs.get(key)
+        if sym is not None and (sym.calls // self.slots + 2) * self._raises(n, parts) > INT32_MAX:
+            self._release(ranks, self._bufs.pop(key))
+            sym = None
+        if sym is None:
+            flag_bytes = _aligned(4 * self._flag_ints(n, parts))
+            sym = self._bufs[key] = _make_symmetric(
+                ranks, flag_bytes, _aligned(out_bytes), self.slots, stream)
+        if sym.stream != stream:
+            raise RuntimeError("a per-rank collective's buffers are used on one stream; "
+                               "this call runs on another")
+        slot, epoch = sym.calls % self.slots, sym.calls // self.slots + 1
+        sym.calls += 1
+        return sym, slot, epoch
+
+    def release(self, ranks) -> None:
+        """Free every set (collective)."""
+        for key in list(self._bufs):
+            self._release(ranks, self._bufs.pop(key))
+
+    @staticmethod
+    def _release(ranks, sym: Symmetric) -> None:
+        # no peer may still run a kernel that stores into this rank's
+        # allocation, and none may hold it open when it is freed
+        torch.cuda.synchronize(ranks.device)
+        ranks.barrier()
+        io, dev = ipc(), ranks.device.index
+        for ptr in sym.opened:
+            io.close(ptr, dev)
+        ranks.barrier()
+        io.free(sym.own, dev)
+
+
+def _make_symmetric(ranks, flag_bytes: int, out_bytes: int, slots: int,
+                    stream: int) -> Symmetric:
+    io, dev = ipc(), ranks.device.index
+    own = io.alloc(slots * (flag_bytes + out_bytes), dev)      # zeroed, synchronised
+    handles = ranks.all_gather_object(io.handle(own, dev))
+    bases = [own if r == ranks.rank else io.open(h, dev) for r, h in enumerate(handles)]
+    opened = tuple(b for r, b in enumerate(bases) if r != ranks.rank)
+    # no rank raises a peer's flag before every rank has mapped every buffer
+    ranks.barrier()
+    return Symmetric(own, tuple(bases), opened, flag_bytes, out_bytes, stream)
+
+
+_SYMMETRIC: dict[str, SymmetricBuffers] = {}
+
+
+def release_symmetric(ranks) -> None:
+    """Free every library's per-rank buffers (collective: every rank calls
+    it, after its last collective)."""
+    for name in sorted(_SYMMETRIC):
+        _SYMMETRIC[name].release(ranks)
+
+
 class RankKernel:
     """One collective library (``csrc/<name>.cu``), built at first use: its C
-    entry ``name(in, out, n, chunk_bytes, parts, variant flags..., flags,
-    epoch, device, stream)``, its flag buffers and its error word."""
+    entries ``name(in, out, n, chunk_bytes, parts, variant flags..., flags,
+    epoch, device, stream)`` (emulated ranks) and ``name_rank(my, n, in,
+    outs, flags, chunk_bytes, parts, variant flags..., epoch, device,
+    stream)`` (one rank per process), its flag buffers, its symmetric
+    buffers (``slots`` per set) and its error word."""
 
-    def __init__(self, name: str, n_variant_flags: int, raises=two_per_part):
+    def __init__(self, name: str, n_variant_flags: int, raises=two_per_part, slots: int = 1):
         lib = _build.load(name)
-        vp, i = ctypes.c_void_p, ctypes.c_int
+        vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         self.name = name
         self._fn = getattr(lib, name)
-        self._fn.argtypes = [vp, vp, i, ctypes.c_longlong, i, *[i] * n_variant_flags,
-                             vp, i, i, vp]
+        self._fn.argtypes = [vp, vp, i, ll, i, *[i] * n_variant_flags, vp, i, i, vp]
         self._fn.restype = i
+        self._fn_rank = getattr(lib, f"{name}_rank")
+        self._fn_rank.argtypes = [i, i, vp, vp, vp, ll, i, *[i] * n_variant_flags, i, i, vp]
+        self._fn_rank.restype = i
         flag_ints = getattr(lib, f"{name}_flag_ints")
-        flag_ints.argtypes, flag_ints.restype = [i, i], ctypes.c_longlong
+        flag_ints.argtypes, flag_ints.restype = [i, i], ll
         self.flags = FlagBuffers(flag_ints, raises)
+        rank_flag_ints = getattr(lib, f"{name}_rank_flag_ints")
+        rank_flag_ints.argtypes, rank_flag_ints.restype = [i, i], ll
+        self.symmetric = _SYMMETRIC[name] = SymmetricBuffers(rank_flag_ints, raises, slots)
         word = getattr(lib, f"{name}_error_word")
         word.argtypes, word.restype = [], vp
         addr = word()
@@ -201,6 +370,24 @@ class RankKernel:
             self.flags.clear()
             raise RuntimeError(describe(self.name, code))
 
+    def check_ranks(self, ranks) -> None:
+        """Collective check of the per-rank path: synchronise, and if a wait
+        of any rank ran out, drop every rank's symmetric buffers of this
+        library and raise on every rank (the rank whose wait failed says
+        which wait)."""
+        torch.cuda.synchronize(ranks.device)
+        code = self._error.value
+        codes = ranks.all_gather_object(code)
+        if not any(codes):
+            return
+        self._error.value = 0
+        self.symmetric.release(ranks)
+        if code:
+            raise RuntimeError(describe(self.name, code))
+        failed = [r for r, c in enumerate(codes) if c]
+        raise RuntimeError(f"{self.name}: a wait of rank(s) {failed} failed; the "
+                           f"collective's output is not valid")
+
     def launch(self, xs: torch.Tensor, out: torch.Tensor, chunk_bytes: int, parts: int,
                variant_flags: tuple[int, ...], layout: int) -> None:
         """One launch over the ranks of ``xs`` (dim 0; contiguous, as is
@@ -218,6 +405,26 @@ class RankKernel:
         if err:
             raise RuntimeError(f"{self.name} launch failed: CUDA error {err}")
         self.flags.give_back(key, buf, epoch)
+
+    def launch_rank(self, x: torch.Tensor, ranks, out: torch.Tensor, chunk_bytes: int,
+                    parts: int, variant_flags: tuple[int, ...], layout: int) -> None:
+        """This rank's launch (``parts`` CTAs, the same on every rank) on the
+        current stream into its slot of the symmetric output, then the copy
+        of that output into ``out`` (contiguous, as is ``x``), on the same
+        stream.  Every rank of ``ranks`` must make the same call.  Raises if
+        the launch is refused."""
+        n, dev = ranks.n, x.device.index
+        stream = torch._C._cuda_getCurrentRawStream(dev)
+        out_bytes = out.numel() * out.element_size()
+        sym, slot, epoch = self.symmetric.take(ranks, out_bytes, parts, layout, stream)
+        flags, outs = sym.slot(slot)
+        table = ctypes.c_void_p * n
+        err = self._fn_rank(ranks.rank, n, x.data_ptr(), table(*outs), table(*flags),
+                            chunk_bytes, parts, *variant_flags, epoch, dev, stream)
+        if err:
+            sym.calls -= 1          # refused on every rank alike: no epoch was used
+            raise RuntimeError(f"{self.name} launch failed: CUDA error {err}")
+        ipc().copy(out.data_ptr(), outs[ranks.rank], out_bytes, dev, stream)
 
 
 def too_many_ctas(name: str, n: int, parts: int | None) -> RuntimeError:

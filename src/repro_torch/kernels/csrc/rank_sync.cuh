@@ -1,11 +1,23 @@
-// Flags, waits and byte copies shared by the emulated-rank collectives
+// Flags, waits and byte copies shared by the rank collectives
 // (ring_all_gather.cu, ring_all_to_all.cu).
 //
-// A collective of the port runs n ranks inside ONE cooperative launch: rank r
-// is CTAs [r * parts, (r + 1) * parts), and the rank's CTAs split its work
-// (each kernel says how).  The operands are rank-stacked contiguous tensors,
-// passed as base pointers.  The TPU kernels' DMA semaphores become int flags
-// in device memory:
+// Each collective has two paths, with one kernel body:
+//
+// * Emulated ranks (Scope::kGpu): ONE cooperative launch runs all n ranks on
+//   one card: rank r is CTAs [r * parts, (r + 1) * parts), and the operands
+//   are rank-stacked contiguous tensors, passed as base pointers.  Every
+//   flag is raised and polled at gpu scope, since every rank is a CTA of one
+//   grid.
+// * One rank per process (Scope::kSys): each process launches only its own
+//   rank's `parts` CTAs, and stores into its peers' outputs through CUDA IPC
+//   mappings.  Every flag a rank waits on lives in that rank's own memory:
+//   it polls locally, and its peers raise with a system-scope release, as a
+//   TPU's DMA semaphore lives on the receiving device.  On one card without
+//   MPS the processes' kernels take turns by time slice, so a wait may last
+//   several slices: its limit is a time (kSysWaitNs), not a poll count,
+//   since a kernel that is switched out does not poll.
+//
+// The TPU kernels' DMA semaphores become int flags in device memory:
 //
 // * a sender CTA stores its share, then every thread passes a barrier
 //   (bar.sync) and one thread per flag raises it with a release add
@@ -17,13 +29,11 @@
 //   its other threads with a barrier: the acquire and the barrier order
 //   their later loads after the producer's stores.
 //
-// Scope is a compile-time parameter of the helpers.  The kernels use
-// Scope::kGpu: every rank is a CTA of one grid on one card, which is the only
-// case that exists.  Ranks on separate cards (peers over NVLink) need
-// Scope::kSys.
+// Scope is a compile-time parameter of the helpers and of the kernels.
 //
 // Flags are never zeroed per call.  The wrapper keeps one flag buffer per
-// (device, stream, n, parts, set of flags raised) and passes a call epoch
+// (device, stream, n, parts, set of flags raised; per rank: chunk bytes and
+// slot, each rank's own, _rank_sync.SymmetricBuffers) and passes a call epoch
 // e = 1, 2, ...; a flag raised c times per call is complete in call e when it
 // reaches e * c.  The kernels on one stream run one after another, so a flag
 // never holds a later call's raises while an earlier call waits on it.  The
@@ -33,8 +43,9 @@
 // The CTAs per rank are chosen on the host, once per call shape
 // (`_rank_sync.py`), and passed in: no call queries the device's attributes.
 //
-// Every wait is bounded: after kSpinLimit polls it writes an error word and
-// the CTA returns, so a lost flag ends the kernel instead of hanging the card.
+// Every wait is bounded (kSpinLimit polls at gpu scope, kSysWaitNs at system
+// scope): then it writes an error word and the CTA returns, so a lost flag
+// ends the kernel instead of hanging the card.
 // The error word lives in pinned host memory mapped into the device, so the
 // host reads it without synchronising or calling into the library
 // (`<name>_error_word()` gives its host address once).
@@ -49,6 +60,12 @@ constexpr int kMaxRanks = 64;
 constexpr int kThreads = 512;
 constexpr int kUnroll = 8;                    // 16-byte words in flight per thread
 constexpr long long kSpinLimit = 1ll << 22;   // polls of one wait (a second or two)
+// One wait of the per-rank path, in ns of the global timer.  Set from the
+// cross-process flag round trip that tools/flag_probe.py measures on one
+// H100 (PERF.md §6): a token's lap of a ring of 2 processes takes 4.5 ms
+// (time slices; 3.9 us between two streams of one process), of 8 processes
+// 72-75 ms.  4 s is 53 laps of 8 processes, about 900 of 2.
+constexpr unsigned long long kSysWaitNs = 4000000000ull;
 
 enum class Scope { kGpu, kSys };
 
@@ -58,6 +75,22 @@ enum class Scope { kGpu, kSys };
 struct RankPtrs {
   const void* in[kMaxRanks];
   void* out[kMaxRanks];
+};
+
+// Per-rank flag regions, beside RankPtrs: rank r's flags start at of[r].
+// Emulated ranks: one buffer cut in regions of equal size; one rank per
+// process: each rank's own buffer, its peers' mapped through CUDA IPC.
+struct RankFlags {
+  int* of[kMaxRanks];
+};
+
+// Where a launch's ranks are: rank `rank_base + blockIdx.x / parts` runs
+// the CTA.  The emulated path passes rank_base 0 and a grid of n * parts;
+// the per-rank path passes its own rank and a grid of parts.
+struct Ranks {
+  RankPtrs ptrs;
+  RankFlags flags;
+  int rank_base;
 };
 
 // What a failed wait was waiting for; packed into the error word with the
@@ -78,6 +111,27 @@ __device__ __forceinline__ int load_acquire(const int* p) {
     asm volatile("ld.acquire.sys.global.s32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
   return v;
 }
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// The bound of one wait: kSpinLimit polls at gpu scope; kSysWaitNs of the
+// global timer at system scope (read every 256 polls).
+template <Scope S>
+struct PollLimit {
+  long long polls = 0;
+  unsigned long long deadline = 0;
+  __device__ __forceinline__ PollLimit() {
+    if constexpr (S == Scope::kSys) deadline = global_ns() + kSysWaitNs;
+  }
+  __device__ __forceinline__ bool spent() {
+    if constexpr (S == Scope::kGpu) return ++polls == kSpinLimit;
+    else return (++polls & 255) == 0 && global_ns() > deadline;
+  }
+};
 
 template <Scope S>
 __device__ __forceinline__ void add_release(int* p) {
@@ -114,9 +168,9 @@ __device__ __forceinline__ bool wait_all(int count, At at, volatile int* err) {
   int failed = 0;
   for (int i = threadIdx.x; i < count; i += blockDim.x) {
     const Wait w = at(i);
-    long long polls = 0;
+    PollLimit<S> limit;
     while (load_acquire<S>(w.flag) < w.target) {
-      if (++polls == kSpinLimit) {
+      if (limit.spent()) {
         if (*err == 0) *err = w.code;
         __threadfence_system();
         failed = 1;
@@ -200,8 +254,10 @@ inline int word_bytes(const void* in, const void* out, long long chunk_bytes) {
 // Checks of a call's scalar arguments and its device, shared by the C
 // entries: cudaSetDevice only when `device` is not already current, and the
 // error word allocated on the first call.
-inline cudaError_t prepare_call(int n, long long chunk_bytes, int parts, int epoch, int device) {
-  if (n < 1 || n > kMaxRanks || chunk_bytes <= 0 || parts < 1 || epoch < 1)
+inline cudaError_t prepare_call(int n, long long chunk_bytes, int parts, int epoch, int device,
+                                int my = 0) {
+  if (n < 1 || n > kMaxRanks || chunk_bytes <= 0 || parts < 1 || epoch < 1 || my < 0 ||
+      my >= n)
     return cudaErrorInvalidValue;
   int current = -1;
   cudaError_t err = cudaGetDevice(&current);

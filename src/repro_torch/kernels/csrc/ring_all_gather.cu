@@ -1,12 +1,24 @@
-// Ring all-gather over n emulated ranks for Hopper (sm_90a).
+// Ring all-gather over n ranks for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel `ring_all_gather_kernel` /
 // `make_ring_all_gather` in src/repro/kernels/ring_all_gather/ring_all_gather.py,
 // where each device forwards one chunk per ring step to its neighbour with a
-// remote DMA and per-step DMA semaphores.  Here the n ranks are n buffers on
-// one card and one cooperative launch runs them all (rank_sync.cuh): rank r
-// owns CTAs [r * parts, (r + 1) * parts), and a remote DMA becomes stores
-// into the neighbour rank's output followed by a release of a flag.
+// remote DMA and per-step DMA semaphores.  A remote DMA becomes stores into
+// the neighbour rank's output followed by a release of a flag.  Two paths,
+// one kernel body templated on scope and on where the ranks are
+// (rank_sync.cuh):
+// * ring_all_gather: emulated ranks, n buffers on one card, one cooperative
+//   launch of n * parts CTAs (rank r owns CTAs [r * parts, (r + 1) * parts)),
+//   gpu-scope flags;
+// * ring_all_gather_rank: one rank per process, a launch of its `parts`
+//   CTAs that stores into the neighbours' outputs through CUDA IPC, with
+//   system-scope flags that live in the waiting rank's memory.  The output
+//   is a persistent symmetric buffer that the wrapper copies out after the
+//   launch; the neighbour barrier (step 1 below) makes its reuse safe: a
+//   rank stores call e + 1 into a neighbour only after that neighbour has
+//   raised its barrier flag in call e + 1, so the neighbour's launch of call
+//   e + 1 has begun and its copy out of call e, queued before it on its
+//   stream, has ended.
 //
 // Schedule, as in the TPU kernel:
 // 1. neighbour barrier: each CTA raises the barrier flag of its share in its
@@ -37,10 +49,11 @@
 //   of all steps are drained once at the end;
 // * bcst / bcst_b2b (bidir=1): the same two syncs with both streams.
 //
-// Syncs: gpu-scope release adds after a CTA barrier, gpu-scope acquire
-// polls, no system fence and no sleep between polls (PERF.md "Why a ring step
-// costs ~9 us" measured each).  Flags count call epochs and are never zeroed
-// per call (rank_sync.cuh); layout in ring_all_gather_flag_ints.
+// Syncs: release adds after a CTA barrier, acquire polls, no system fence
+// and no sleep between polls (PERF.md "Why a ring step costs ~9 us" measured
+// each), at gpu scope on the emulated path and system scope per rank.  Flags
+// count call epochs and are never zeroed per call (rank_sync.cuh); layout in
+// Stacked and PerRank below.
 //
 // Bound on the H100: HBM bytes.  The function reads the n shards once and
 // writes n copies of them, (n + n * n) chunks at 3.35 TB/s.  Each step of a
@@ -54,49 +67,86 @@ using namespace rank_sync;
 
 namespace {
 
-constexpr Scope kScope = Scope::kGpu;
-
 __host__ __device__ inline int ring_steps(int n) { return n > 1 ? n - 1 : 1; }
 
-// Flag layout: barrier [n][parts], recv [2 streams][n][steps][parts],
+// Emulated ranks: rank-stacked buffers (pointer table by value) and one flag
+// buffer, barrier [n][parts], recv [2 streams][n][steps][parts],
 // send [2 streams][n][steps].
-__host__ __device__ inline long long flag_ints(int n, int parts) {
-  const long long steps = ring_steps(n);
-  return (long long)n * parts + 2 * n * steps * parts + 2 * n * steps;
-}
+struct Stacked {
+  RankPtrs ptrs;
+  int* flags;
+  int n, parts;
 
-template <typename W>
-__global__ void __launch_bounds__(kThreads)
-ring_all_gather_kernel(RankPtrs ptrs, int n, long long words, int parts, int defer,
-                       int bidir, int* flags, int epoch, volatile int* err) {
-  const int my = blockIdx.x / parts;
+  static __host__ __device__ long long flag_ints(int n, int parts) {
+    const long long steps = ring_steps(n);
+    return (long long)n * parts + 2 * n * steps * parts + 2 * n * steps;
+  }
+  __device__ int rank(int block) const { return block / parts; }
+  __device__ const void* in(int r) const { return ptrs.in[r]; }
+  __device__ void* out(int r) const { return ptrs.out[r]; }
+  __device__ int* barrier(int r, int part) const { return flags + r * parts + part; }
+  __device__ int* recv(int stream, int r, int i, int part) const {
+    const int steps = ring_steps(n);
+    return flags + n * parts + (((long long)stream * n + r) * steps + i) * parts + part;
+  }
+  __device__ int* send(int stream, int r, int i) const {
+    const int steps = ring_steps(n);
+    return flags + n * parts + 2LL * n * steps * parts + ((long long)stream * n + r) * steps + i;
+  }
+};
+
+// One rank per process: this rank's input, every rank's output and flag
+// region (IPC-mapped for peers), a region per rank of barrier [parts],
+// recv [2 streams][steps][parts], send [2 streams][steps].
+struct PerRank {
+  const void* input;
+  RankPtrs ptrs;      // out[] only
+  RankFlags flags;
+  int my, n, parts;
+
+  static __host__ __device__ long long flag_ints(int n, int parts) {
+    const long long steps = ring_steps(n);
+    return parts + 2 * steps * parts + 2 * steps;
+  }
+  __device__ int rank(int block) const { return my; }
+  __device__ const void* in(int) const { return input; }
+  __device__ void* out(int r) const { return ptrs.out[r]; }
+  __device__ int* barrier(int r, int part) const { return flags.of[r] + part; }
+  __device__ int* recv(int stream, int r, int i, int part) const {
+    return flags.of[r] + parts + ((long long)stream * ring_steps(n) + i) * parts + part;
+  }
+  __device__ int* send(int stream, int r, int i) const {
+    const int steps = ring_steps(n);
+    return flags.of[r] + parts + 2LL * steps * parts + (long long)stream * steps + i;
+  }
+};
+
+// One block per SM is all a cooperative launch needs; with the 1, ptxas
+// does not hold the kernel to 64 registers (PERF.md §6).
+template <Scope S, typename L, typename W>
+__global__ void __launch_bounds__(kThreads, 1)
+ring_all_gather_kernel(const __grid_constant__ L ranks, long long words, int defer, int bidir,
+                       int epoch, volatile int* err) {
+  const int n = ranks.n, parts = ranks.parts;
+  const int my = ranks.rank(blockIdx.x);
   const int part = blockIdx.x % parts;
   const int left = (my + n - 1) % n;
   const int right = (my + 1) % n;
-  const int steps = ring_steps(n);
-  int* const barrier = flags;                              // [n][parts]
-  int* const recv = barrier + n * parts;                   // [2][n][steps][parts]
-  int* const send = recv + 2 * n * steps * parts;          // [2][n][steps]
-  auto recv_at = [&](int stream, int rank, int i) {
-    return recv + (((long long)stream * n + rank) * steps + i) * parts + part;
-  };
-  auto send_at = [&](int stream, int rank, int i) {
-    return send + ((long long)stream * n + rank) * steps + i;
-  };
+  auto recv_at = [&](int stream, int rank, int i) { return ranks.recv(stream, rank, i, part); };
+  auto send_at = [&](int stream, int rank, int i) { return ranks.send(stream, rank, i); };
   const long long lo = words * part / parts;
   const long long hi = words * (part + 1) / parts;
-  W* const mine = static_cast<W*>(ptrs.out[my]);
-  W* const to_right = static_cast<W*>(ptrs.out[right]);
-  W* const to_left = static_cast<W*>(ptrs.out[left]);
+  W* const mine = static_cast<W*>(ranks.out(my));
+  W* const to_right = static_cast<W*>(ranks.out(right));
+  W* const to_left = static_cast<W*>(ranks.out(left));
 
-  raise_flags<kScope>(barrier + left * parts + part, barrier + right * parts + part);
-  if (!wait_for<kScope>(barrier + my * parts + part, 2 * epoch,
-                        error_code(kBarrier, 0, my, 0), err))
+  raise_flags<S>(ranks.barrier(left, part), ranks.barrier(right, part));
+  if (!wait_for<S>(ranks.barrier(my, part), 2 * epoch, error_code(kBarrier, 0, my, 0), err))
     return;
 
   // The same thread copies the same words in every call of copy_words, so
   // step 1 reads back what this thread stored here.
-  copy_words(static_cast<const W*>(ptrs.in[my]), mine + my * words, (W*)nullptr, lo, hi);
+  copy_words(static_cast<const W*>(ranks.in(my)), mine + my * words, (W*)nullptr, lo, hi);
 
   const int n_right = bidir ? n / 2 : n - 1;   // ceil((n-1)/2) when bidirectional
   const int n_left = (n - 1) - n_right;
@@ -113,14 +163,14 @@ ring_all_gather_kernel(RankPtrs ptrs, int n, long long words, int parts, int def
         copy_words(mine + slot_l * words, to_left + slot_l * words, (W*)nullptr, lo, hi);
     }
     const int i = k - 1;
-    raise_flags<kScope>(recv_at(0, right, i), send_at(0, my, i),
-                        go_left ? recv_at(1, left, i) : nullptr,
-                        go_left ? send_at(1, my, i) : nullptr);
+    raise_flags<S>(recv_at(0, right, i), send_at(0, my, i),
+                   go_left ? recv_at(1, left, i) : nullptr,
+                   go_left ? send_at(1, my, i) : nullptr);
     // Waits of this step, polled at once: [recv_r, recv_l] then, for pcpy,
     // [send_r, send_l].  The recv flag says this share of the next slot
     // has arrived from its one producer.
     const int n_streams = go_left ? 2 : 1;
-    const bool ok = wait_all<kScope>(
+    const bool ok = wait_all<S>(
         defer ? n_streams : 2 * n_streams,
         [&](int w) {
           const int stream = w % n_streams;
@@ -134,7 +184,7 @@ ring_all_gather_kernel(RankPtrs ptrs, int n, long long words, int parts, int def
   }
   if (defer) {
     // b2b: drain the send flags of every step, all polled at once.
-    wait_all<kScope>(
+    wait_all<S>(
         n_right + n_left,
         [&](int w) {
           const int stream = w < n_right ? 0 : 1;
@@ -146,56 +196,96 @@ ring_all_gather_kernel(RankPtrs ptrs, int n, long long words, int parts, int def
   }
 }
 
-template <typename W>
-cudaError_t launch(const RankPtrs& ptrs, int n, long long chunk_bytes, int parts, int defer,
-                   int bidir, int* flags, int epoch, cudaStream_t stream) {
-  RankPtrs p = ptrs;
+template <Scope S, typename L, typename W>
+cudaError_t launch_as(L ranks, int grid, long long chunk_bytes, int defer, int bidir, int epoch,
+                      cudaStream_t stream) {
   long long words = chunk_bytes / (long long)sizeof(W);
   volatile int* err = error_word().device;
-  void* args[] = {&p, &n, &words, &parts, &defer, &bidir, &flags, &epoch, &err};
-  cudaError_t e = cudaLaunchCooperativeKernel((const void*)ring_all_gather_kernel<W>,
-                                              dim3((unsigned)(n * parts)), dim3(kThreads),
-                                              args, 0, stream);
+  void* args[] = {&ranks, &words, &defer, &bidir, &epoch, &err};
+  cudaError_t e = cudaLaunchCooperativeKernel((const void*)ring_all_gather_kernel<S, L, W>,
+                                              dim3((unsigned)grid), dim3(kThreads), args, 0,
+                                              stream);
   const cudaError_t last = cudaGetLastError();
   return e != cudaSuccess ? e : last;
 }
 
+// The launch with the widest word that divides the pointers and the chunk.
+template <Scope S, typename L>
+cudaError_t launch(const L& ranks, int grid, uintptr_t align, long long chunk_bytes, int defer,
+                   int bidir, int epoch, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (word_bytes((const void*)align, nullptr, chunk_bytes)) {
+    case 16: return launch_as<S, L, uint4>(ranks, grid, chunk_bytes, defer, bidir, epoch, s);
+    case 4: return launch_as<S, L, uint32_t>(ranks, grid, chunk_bytes, defer, bidir, epoch, s);
+    case 2: return launch_as<S, L, uint16_t>(ranks, grid, chunk_bytes, defer, bidir, epoch, s);
+    default: return launch_as<S, L, uint8_t>(ranks, grid, chunk_bytes, defer, bidir, epoch, s);
+  }
+}
+
 }  // namespace
 
-// in: the rank-stacked shards, n * chunk_bytes (rank r's at r * chunk_bytes);
-// out: the rank-stacked outputs, n * n * chunk_bytes; parts: CTAs per rank,
-// chosen by the caller (_rank_sync.py) so that all n * parts CTAs are
-// resident; flags: ring_all_gather_flag_ints(n, parts) ints, zeroed before
-// the first call and kept between calls on one stream; epoch: 1 for the
-// first call on a buffer, one more for each call after.  Returns
-// cudaGetLastError() after the launch (0 on success); nothing is
+// Emulated ranks.  in: the rank-stacked shards, n * chunk_bytes (rank r's
+// at r * chunk_bytes); out: the rank-stacked outputs, n * n * chunk_bytes;
+// parts: CTAs per rank, chosen by the caller (_rank_sync.py) so that all
+// n * parts CTAs are resident; flags: ring_all_gather_flag_ints(n, parts)
+// ints, zeroed before the first call and kept between calls on one stream;
+// epoch: 1 for the first call on a buffer, one more for each call after.
+// Returns cudaGetLastError() after the launch (0 on success); nothing is
 // synchronised.
 extern "C" int ring_all_gather(const void* in, void* out, int n, long long chunk_bytes,
                                int parts, int defer, int bidir, int* flags, int epoch,
                                int device, void* stream) {
   cudaError_t err = prepare_call(n, chunk_bytes, parts, epoch, device);
   if (err != cudaSuccess) return (int)err;
-  RankPtrs ptrs{};
+  Stacked ranks{};
   for (int r = 0; r < n; ++r) {
-    ptrs.in[r] = static_cast<const char*>(in) + r * chunk_bytes;
-    ptrs.out[r] = static_cast<char*>(out) + (long long)r * n * chunk_bytes;
+    ranks.ptrs.in[r] = static_cast<const char*>(in) + r * chunk_bytes;
+    ranks.ptrs.out[r] = static_cast<char*>(out) + (long long)r * n * chunk_bytes;
   }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (word_bytes(in, out, chunk_bytes)) {
-    case 16:
-      return (int)launch<uint4>(ptrs, n, chunk_bytes, parts, defer, bidir, flags, epoch, s);
-    case 4:
-      return (int)launch<uint32_t>(ptrs, n, chunk_bytes, parts, defer, bidir, flags, epoch, s);
-    case 2:
-      return (int)launch<uint16_t>(ptrs, n, chunk_bytes, parts, defer, bidir, flags, epoch, s);
-    default:
-      return (int)launch<uint8_t>(ptrs, n, chunk_bytes, parts, defer, bidir, flags, epoch, s);
-  }
+  ranks.flags = flags;
+  ranks.n = n;
+  ranks.parts = parts;
+  const uintptr_t align = (uintptr_t)in | (uintptr_t)out;
+  return (int)launch<Scope::kGpu>(ranks, n * parts, align, chunk_bytes, defer, bidir, epoch,
+                                  stream);
 }
 
-// Ints of the flag buffer of a call with n ranks and `parts` CTAs per rank.
+// One rank per process: rank `my` of n.  in: this rank's shard, chunk_bytes;
+// outs: every rank's output (n * chunk_bytes; peers' mapped through CUDA
+// IPC, outs[my] this rank's own); flags: every rank's flag region of
+// ring_all_gather_rank_flag_ints(n, parts) ints, likewise, each zeroed
+// before its first call; parts: this rank's CTAs, the same on every rank;
+// epoch: as above, the same on every rank.  Launches this rank's `parts`
+// CTAs; returns cudaGetLastError() after the launch, nothing synchronised.
+extern "C" int ring_all_gather_rank(int my, int n, const void* in, void* const* outs,
+                                    int* const* flags, long long chunk_bytes, int parts,
+                                    int defer, int bidir, int epoch, int device, void* stream) {
+  cudaError_t err = prepare_call(n, chunk_bytes, parts, epoch, device, my);
+  if (err != cudaSuccess) return (int)err;
+  PerRank ranks{};
+  ranks.input = in;
+  uintptr_t align = (uintptr_t)in;
+  for (int r = 0; r < n; ++r) {
+    ranks.ptrs.out[r] = outs[r];
+    ranks.flags.of[r] = flags[r];
+    align |= (uintptr_t)outs[r];
+  }
+  ranks.my = my;
+  ranks.n = n;
+  ranks.parts = parts;
+  return (int)launch<Scope::kSys>(ranks, parts, align, chunk_bytes, defer, bidir, epoch,
+                                  stream);
+}
+
+// Ints of the flag buffer of an emulated call with n ranks and `parts` CTAs
+// per rank.
 extern "C" long long ring_all_gather_flag_ints(int n, int parts) {
-  return flag_ints(n, parts);
+  return Stacked::flag_ints(n, parts);
+}
+
+// Ints of one rank's flag region on the per-rank path.
+extern "C" long long ring_all_gather_rank_flag_ints(int n, int parts) {
+  return PerRank::flag_ints(n, parts);
 }
 
 // Host address of the error word (allocated here if no call made it yet;

@@ -1,14 +1,19 @@
-// All-to-all over n emulated ranks for Hopper (sm_90a): out_i[j] = x_j[i].
+// All-to-all over n ranks for Hopper (sm_90a): out_i[j] = x_j[i].
 //
 // Replaces the Pallas TPU kernel `all_to_all_kernel` / `make_all_to_all` in
 // src/repro/kernels/ring_all_to_all/ring_all_to_all.py, where each device
 // exchanges one chunk per round with a partner by remote DMA: round r pairs
 // `my` with my ^ r when n is a power of two (the in-place pairwise swap),
-// else sends to my + r (rotation); round 0 is the local chunk.  Here the n
-// ranks are n slices of one rank-stacked buffer on one card, one cooperative
-// launch runs them all (rank r owns CTAs [r * parts, (r + 1) * parts)), and
-// a remote DMA becomes stores into the partner's output slice followed by a
-// release add on a flag (rank_sync.cuh).
+// else sends to my + r (rotation); round 0 is the local chunk.  A remote DMA
+// becomes stores into the partner's output slice followed by a release add
+// on a flag (rank_sync.cuh).  Two paths, one kernel body templated on scope
+// and on where the ranks are:
+// * ring_all_to_all: emulated ranks, n slices of one rank-stacked buffer on
+//   one card, one cooperative launch of n * parts CTAs (rank r owns CTAs
+//   [r * parts, (r + 1) * parts)), gpu-scope flags;
+// * ring_all_to_all_rank: one rank per process, a launch of its `parts`
+//   CTAs that stores into its partners' outputs through CUDA IPC, with
+//   system-scope flags that live in the waiting rank's memory.
 //
 // What bounds it on the H100.  From about 16 MiB per rank, HBM bytes: every
 // rank reads and writes its n chunks, 2 * n * n * chunk bytes at 3.35 TB/s.
@@ -53,13 +58,27 @@
 // The TPU kernel's neighbour barrier is gone: on the TPU it keeps a device
 // from writing into a peer that has not entered the kernel yet.  Inside one
 // grid whose output was allocated before the launch, and with flags that
-// count call epochs, it orders nothing (it cost ~1 us, PERF.md §6).  A
-// rendering with ranks on separate cards (peer memory over NVLink, ROADMAP
-// 10b) needs it back, with every flag under Scope::kSys.
+// count call epochs, it orders nothing (it cost ~1 us, PERF.md §6).
 //
-// Flags (epoch-counted, never zeroed per call; flag_ints below): arrival
-// counters [n] of b2b, one 128-byte line each since every CTA of the grid
-// raises one; send and recv [n][n] of per_round (index 0 unused).  Every wait is
+// The per-rank path needs that ordering, and gets it from two slots instead
+// of a barrier: the wrapper (_rank_sync.SymmetricBuffers) gives each rank
+// two persistent (output, flags) slots, and call c uses slot c % 2 with that
+// slot's own epoch.  What makes it safe: every rank exchanges with every
+// other, and a rank's call c ends only after each partner's stores of call
+// c have landed in it (b2b: its drain counts them; per_round: it waits for
+// every round's recv flag).  So when rank q stores call c + 2 into p's slot,
+// q has ended call c + 1, in which p stored into q, so p's launch of call
+// c + 1 has begun and p's copy out of call c (queued before it on p's
+// stream) has ended: the slot is free.  For the flags: any raise of call
+// c + 2 comes from a rank that has ended call c + 1, which needed every
+// rank's call-c + 1 stores, so every rank had ended call c and made all
+// its raises of call c; a slot's count never mixes in a later call's raises
+// before a wait of call c is met.  Costs nothing in the kernel, where a
+// barrier would cost a flag round trip between processes.
+//
+// Flags (epoch-counted, never zeroed per call; Stacked and PerRank below):
+// arrival counters [n] of b2b, one 128-byte line each since every CTA of
+// the grid raises one; send and recv [n][n] of per_round (index 0 unused).  Every wait is
 // bounded and leaves a code in the error word.  Raw-word copies (16-, 4-,
 // 2- or 1-byte words as the pointers and the chunk allow), bit-exact in
 // every dtype.
@@ -69,12 +88,53 @@ using namespace rank_sync;
 
 namespace {
 
-constexpr Scope kScope = Scope::kGpu;
 constexpr int kPad = 32;    // ints from one rank's arrival counter to the next
 
-__host__ __device__ inline long long flag_ints(int n) {
-  return (long long)n * kPad + 2LL * n * n;
-}
+// Emulated ranks: x and out rank-stacked [n][n][words]; one flag buffer,
+// arrive [n][kPad], send [n][n], recv [n][n].
+template <typename W>
+struct Stacked {
+  const W* x;
+  W* out;
+  int* flags;
+  int n;
+  long long words;
+
+  static __host__ __device__ long long flag_ints(int n) {
+    return (long long)n * kPad + 2LL * n * n;
+  }
+  __device__ int rank(int block, int parts) const { return block / parts; }
+  // x[my][p]: rank my's chunk for p; out[p][my]: where it lands
+  __device__ const W* src(int my, int p) const { return x + ((long long)my * n + p) * words; }
+  __device__ W* dst(int p, int my) const { return out + ((long long)p * n + my) * words; }
+  __device__ int* arrive(int r) const { return flags + r * kPad; }
+  __device__ int* send(int r, int round) const { return flags + n * kPad + r * n + round; }
+  __device__ int* recv(int r, int round) const {
+    return flags + n * kPad + n * n + r * n + round;
+  }
+};
+
+// One rank per process: this rank's x [n][words], every rank's output slot
+// [n][words] and flag region (IPC-mapped for peers), a region per rank of
+// arrive [kPad], send [n], recv [n].
+template <typename W>
+struct PerRank {
+  const W* x;
+  RankPtrs ptrs;      // out[] only
+  RankFlags flags;
+  int my, n;
+  long long words;
+
+  static __host__ __device__ long long flag_ints(int n) { return kPad + 2LL * n; }
+  __device__ int rank(int, int) const { return my; }
+  __device__ const W* src(int, int p) const { return x + (long long)p * words; }
+  __device__ W* dst(int p, int my_) const {
+    return static_cast<W*>(ptrs.out[p]) + (long long)my_ * words;
+  }
+  __device__ int* arrive(int r) const { return flags.of[r]; }
+  __device__ int* send(int r, int round) const { return flags.of[r] + kPad + round; }
+  __device__ int* recv(int r, int round) const { return flags.of[r] + kPad + n + round; }
+};
 
 // b2b: a CTA's rounds first, first + stride, ... (`rounds` of them), and
 // its share of each: share `share` of `shares`.  Twin of A2APlan.work_of.
@@ -116,20 +176,18 @@ __device__ __forceinline__ bool copy_share(const W* src, W* dst, long long lo, l
   return true;
 }
 
-template <typename W>
-__global__ void __launch_bounds__(kThreads)
-all_to_all_kernel(const W* __restrict__ x, W* __restrict__ out, int n, long long words,
-                  int parts, int b2b, int* flags, int epoch, volatile int* err) {
-  const int my = blockIdx.x / parts;
+// The kernel body, shared by both paths; each kernel below is a thin entry.
+template <Scope S, typename W, template <typename> class L>
+__device__ __forceinline__ void all_to_all_body(const L<W>& ranks, int parts, int b2b,
+                                                int epoch, volatile int* err) {
+  const int n = ranks.n;
+  const long long words = ranks.words;
+  const int my = ranks.rank(blockIdx.x, parts);
   const int c = blockIdx.x % parts;
   const bool xor_pairing = (n & (n - 1)) == 0;
   auto partner = [&](int r) { return xor_pairing ? (my ^ r) : (my + r) % n; };
-  // x[my][p]: rank my's chunk for p; out[p][my]: where it lands
-  auto src = [&](int p) { return x + ((long long)my * n + p) * words; };
-  auto dst = [&](int p) { return out + ((long long)p * n + my) * words; };
-  int* const arrive = flags;                  // [n][kPad]
-  int* const send = flags + n * kPad;         // [n][n]
-  int* const recv = send + n * n;             // [n][n]
+  auto src = [&](int p) { return ranks.src(my, p); };
+  auto dst = [&](int p) { return ranks.dst(p, my); };
   const Work w = work_of(c, parts, n);
   auto no_wait = [] { return true; };
 
@@ -144,7 +202,7 @@ all_to_all_kernel(const W* __restrict__ x, W* __restrict__ out, int n, long long
       const long long total = (long long)w.rounds * words;
       for (long long b = threadIdx.x; b < total; b += (long long)kThreads * kUnroll) {
         W v[kUnroll];
-        long long to[kUnroll];
+        W* to[kUnroll];
 #pragma unroll
         for (int u = 0; u < kUnroll; ++u) {
           const long long e = b + (long long)u * kThreads;
@@ -153,20 +211,20 @@ all_to_all_kernel(const W* __restrict__ x, W* __restrict__ out, int n, long long
             const long long off = e - i * words;
             const int p = partner(w.first + i * w.stride);
             v[u] = __ldcg(src(p) + off);
-            to[u] = ((long long)p * n + my) * words + off;
+            to[u] = dst(p) + off;
           }
         }
 #pragma unroll
         for (int u = 0; u < kUnroll; ++u)
-          if (b + (long long)u * kThreads < total) __stcg(out + to[u], v[u]);
+          if (b + (long long)u * kThreads < total) __stcg(to[u], v[u]);
       }
     }
     __syncthreads();
     if ((int)threadIdx.x < w.rounds)
-      add_release<kScope>(arrive + partner(w.first + threadIdx.x * w.stride) * kPad);
+      add_release<S>(ranks.arrive(partner(w.first + threadIdx.x * w.stride)));
     if (c == 0)
-      wait_for<kScope>(arrive + my * kPad, (parts >= n ? parts : n) * epoch,
-                       error_code(kArrive, 0, my, 0), err);
+      wait_for<S>(ranks.arrive(my), (parts >= n ? parts : n) * epoch,
+                  error_code(kArrive, 0, my, 0), err);
     return;
   }
 
@@ -174,9 +232,9 @@ all_to_all_kernel(const W* __restrict__ x, W* __restrict__ out, int n, long long
   // order, so every round has all of the rank's CTAs; round r >= 2 waits for
   // round r - 1's send and recv flags, each raised by a rank's parts CTAs.
   auto wait_round = [&](int r) {
-    return wait_all<kScope>(2, [&](int k) {
-      return k == 0 ? Wait{send + my * n + r, parts * epoch, error_code(kSend, 0, my, r)}
-                    : Wait{recv + my * n + r, parts * epoch, error_code(kRecv, 0, my, r)};
+    return wait_all<S>(2, [&](int k) {
+      return k == 0 ? Wait{ranks.send(my, r), parts * epoch, error_code(kSend, 0, my, r)}
+                    : Wait{ranks.recv(my, r), parts * epoch, error_code(kRecv, 0, my, r)};
     }, err);
   };
   const long long lo = words * c / parts, len = words * (c + 1) / parts - lo;
@@ -200,62 +258,142 @@ all_to_all_kernel(const W* __restrict__ x, W* __restrict__ out, int n, long long
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u)
         if (round[u] == r) __stcg(dst(p) + off[u], v[u]);
-      if (r >= 1) raise_flags<kScope>(send + my * n + r, recv + p * n + r);
+      if (r >= 1) raise_flags<S>(ranks.send(my, r), ranks.recv(p, r));
     }
   } else {
     for (int r = 0; r < n; ++r) {
       const int p = partner(r);
       auto wait_prev = [&] { return r < 2 || wait_round(r - 1); };
       if (!copy_share(src(p), dst(p), lo, lo + len, wait_prev)) return;
-      if (r >= 1) raise_flags<kScope>(send + my * n + r, recv + p * n + r);
+      if (r >= 1) raise_flags<S>(ranks.send(my, r), ranks.recv(p, r));
     }
   }
   if (n > 1) wait_round(n - 1);
 }
 
+// Emulated ranks: the operands as separate parameters, as before the
+// per-rank path existed.  One block per SM is all a cooperative launch
+// needs: without the 1, ptxas held this entry to 64 registers and spilled,
+// and per_round ran 4% slower (PERF.md §6).
 template <typename W>
-cudaError_t launch(const void* x, void* out, int n, long long chunk_bytes, int parts, int b2b,
-                   int* flags, int epoch, cudaStream_t stream) {
-  const W* xp = static_cast<const W*>(x);
-  W* op = static_cast<W*>(out);
-  long long words = chunk_bytes / (long long)sizeof(W);
-  volatile int* err = error_word().device;
-  void* args[] = {&xp, &op, &n, &words, &parts, &b2b, &flags, &epoch, &err};
-  cudaError_t e = cudaLaunchCooperativeKernel((const void*)all_to_all_kernel<W>,
-                                              dim3((unsigned)(n * parts)), dim3(kThreads),
+__global__ void __launch_bounds__(kThreads, 1)
+all_to_all_kernel(const W* __restrict__ x, W* __restrict__ out, int n, long long words,
+                  int parts, int b2b, int* flags, int epoch, volatile int* err) {
+  const Stacked<W> ranks{x, out, flags, n, words};
+  all_to_all_body<Scope::kGpu>(ranks, parts, b2b, epoch, err);
+}
+
+// One rank per process: the pointer tables read in place from the
+// parameter space.
+template <typename W>
+__global__ void __launch_bounds__(kThreads, 1)
+all_to_all_rank_kernel(const __grid_constant__ PerRank<W> ranks, int parts, int b2b, int epoch,
+                       volatile int* err) {
+  all_to_all_body<Scope::kSys>(ranks, parts, b2b, epoch, err);
+}
+
+cudaError_t launch(const void* kernel, void** args, int grid, cudaStream_t stream) {
+  cudaError_t e = cudaLaunchCooperativeKernel(kernel, dim3((unsigned)grid), dim3(kThreads),
                                               args, 0, stream);
   const cudaError_t last = cudaGetLastError();
   return e != cudaSuccess ? e : last;
 }
 
+template <typename W>
+cudaError_t launch_stacked(const void* x, void* out, int n, long long chunk_bytes, int parts,
+                           int b2b, int* flags, int epoch, cudaStream_t stream) {
+  const W* xp = static_cast<const W*>(x);
+  W* op = static_cast<W*>(out);
+  long long words = chunk_bytes / (long long)sizeof(W);
+  volatile int* err = error_word().device;
+  void* args[] = {&xp, &op, &n, &words, &parts, &b2b, &flags, &epoch, &err};
+  return launch((const void*)all_to_all_kernel<W>, args, n * parts, stream);
+}
+
+template <typename W>
+cudaError_t launch_rank(int my, int n, const void* x, void* const* outs, int* const* flags,
+                        long long chunk_bytes, int parts, int b2b, int epoch,
+                        cudaStream_t stream) {
+  PerRank<W> ranks{};
+  ranks.x = static_cast<const W*>(x);
+  for (int r = 0; r < n; ++r) {
+    ranks.ptrs.out[r] = outs[r];
+    ranks.flags.of[r] = flags[r];
+  }
+  ranks.my = my;
+  ranks.n = n;
+  ranks.words = chunk_bytes / (long long)sizeof(W);
+  volatile int* err = error_word().device;
+  void* args[] = {&ranks, &parts, &b2b, &epoch, &err};
+  return launch((const void*)all_to_all_rank_kernel<W>, args, parts, stream);
+}
+
 }  // namespace
 
-// x: the rank-stacked input [n][n][chunk_bytes] (x[j][i] is rank j's chunk
-// for rank i); out: the output of the same layout; parts: CTAs per rank,
-// chosen by the caller (_rank_sync.A2APlan) so that all n * parts CTAs are
-// resident; flags: ring_all_to_all_flag_ints(n, parts) ints, zeroed before
-// the first call and kept between calls on one stream with the same parts
-// and variant; epoch: 1 for the first call on a buffer, one more for each
-// call after.  Returns cudaGetLastError() after the launch (0 on success);
-// nothing is synchronised.
+// Emulated ranks.  x: the rank-stacked input [n][n][chunk_bytes] (x[j][i]
+// is rank j's chunk for rank i); out: the output of the same layout; parts:
+// CTAs per rank, chosen by the caller (_rank_sync.A2APlan) so that all
+// n * parts CTAs are resident; flags: ring_all_to_all_flag_ints(n, parts)
+// ints, zeroed before the first call and kept between calls on one stream
+// with the same parts and variant; epoch: 1 for the first call on a buffer,
+// one more for each call after.  Returns cudaGetLastError() after the
+// launch (0 on success); nothing is synchronised.
 extern "C" int ring_all_to_all(const void* x, void* out, int n, long long chunk_bytes,
                                int parts, int b2b, int* flags, int epoch, int device,
                                void* stream) {
   cudaError_t err = prepare_call(n, chunk_bytes, parts, epoch, device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto go = [&](auto word) {
+    using W = decltype(word);
+    return (int)launch_stacked<W>(x, out, n, chunk_bytes, parts, b2b, flags, epoch, s);
+  };
   switch (word_bytes(x, out, chunk_bytes)) {
-    case 16: return (int)launch<uint4>(x, out, n, chunk_bytes, parts, b2b, flags, epoch, s);
-    case 4: return (int)launch<uint32_t>(x, out, n, chunk_bytes, parts, b2b, flags, epoch, s);
-    case 2: return (int)launch<uint16_t>(x, out, n, chunk_bytes, parts, b2b, flags, epoch, s);
-    default: return (int)launch<uint8_t>(x, out, n, chunk_bytes, parts, b2b, flags, epoch, s);
+    case 16: return go(uint4{});
+    case 4: return go(uint32_t{});
+    case 2: return go(uint16_t{});
+    default: return go(uint8_t{});
   }
 }
 
-// Ints of the flag buffer of a call with n ranks (any parts).
+// One rank per process: rank `my` of n.  x: this rank's chunks
+// [n][chunk_bytes] (x[i] for rank i); outs: every rank's output slot
+// [n][chunk_bytes] (peers' mapped through CUDA IPC, outs[my] this rank's
+// own), where rank j's chunk lands at [j]; flags: every rank's flag region
+// of ring_all_to_all_rank_flag_ints(n, parts) ints, likewise, each zeroed
+// before its first call; parts and epoch as above, the same on every rank.
+// Launches this rank's `parts` CTAs; returns cudaGetLastError() after the
+// launch, nothing synchronised.
+extern "C" int ring_all_to_all_rank(int my, int n, const void* x, void* const* outs,
+                                    int* const* flags, long long chunk_bytes, int parts, int b2b,
+                                    int epoch, int device, void* stream) {
+  cudaError_t err = prepare_call(n, chunk_bytes, parts, epoch, device, my);
+  if (err != cudaSuccess) return (int)err;
+  uintptr_t align = (uintptr_t)x;
+  for (int r = 0; r < n; ++r) align |= (uintptr_t)outs[r];
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto go = [&](auto word) {
+    using W = decltype(word);
+    return (int)launch_rank<W>(my, n, x, outs, flags, chunk_bytes, parts, b2b, epoch, s);
+  };
+  switch (word_bytes((const void*)align, nullptr, chunk_bytes)) {
+    case 16: return go(uint4{});
+    case 4: return go(uint32_t{});
+    case 2: return go(uint16_t{});
+    default: return go(uint8_t{});
+  }
+}
+
+// Ints of the flag buffer of an emulated call with n ranks (any parts).
 extern "C" long long ring_all_to_all_flag_ints(int n, int parts) {
   (void)parts;
-  return flag_ints(n);
+  return Stacked<uint4>::flag_ints(n);
+}
+
+// Ints of one rank's flag region on the per-rank path (any parts).
+extern "C" long long ring_all_to_all_rank_flag_ints(int n, int parts) {
+  (void)parts;
+  return PerRank<uint4>::flag_ints(n);
 }
 
 // Host address of the error word (see ring_all_gather_error_word).

@@ -5,6 +5,13 @@ collectives with the variant its dispatch table picks.  Counterpart of
 ``examples/pallas_collectives.py`` and ``benchmarks/tpu_collectives.py``.
 
     PYTHONPATH=src python -m repro_torch.launch.collectives --ranks 8
+    PYTHONPATH=src python -m repro_torch.launch.collectives --ranks 8 --procs
+
+``--procs`` spawns ``--ranks`` processes, one rank each
+(``core.procgroup.spawn``): every B3 and B4 variant runs per rank (each
+process launches its own rank's CTAs and stores into its peers' memory
+through CUDA IPC; over gloo on the CPU), bit-equal to its numpy oracle, then
+``CommBackend('latte')``'s all-gather and all-to-all over the processes.
 
 Data is made with numpy from ``--seed``.  All-gather and all-to-all must be
 bit-equal to their oracles; reduce-scatter and all-reduce (float32) within
@@ -19,7 +26,8 @@ import numpy as np
 import torch
 
 from repro_torch.core import collectives as coll
-from repro_torch.core.backend import COLLECTIVES, CommBackend
+from repro_torch.core.backend import COLLECTIVES, CommBackend, tpu_dispatch_tables
+from repro_torch.core.procgroup import ProcessRanks, spawn
 from repro_torch.kernels.ring_all_gather import ops as ag_ops
 from repro_torch.kernels.ring_all_to_all import ops as aa_ops
 
@@ -84,6 +92,70 @@ def run_backend(ranks: coll.RankGroup, chunk: int, width: int, seed: int) -> dic
     return out
 
 
+def run_rank(ranks: ProcessRanks, chunk: int, width: int, seed: int) -> dict:
+    """One process of ``--procs``: every B3/B4 variant per rank in f32 and
+    bf16 against its numpy oracle, then ``CommBackend('latte')``'s
+    all-gather and all-to-all (f32).  Every rank makes the same inputs from
+    ``seed`` and keeps its own part.  Returns {"kernels": {name: ok},
+    "backend": {collective: (variant, bytes, ok)}, "launches": (B3, B4)}."""
+    n, my, dev = ranks.n, ranks.rank, ranks.device
+    rng, kernels = np.random.default_rng(seed), {}
+    before = (ag_ops.launches_rank, aa_ops.launches_rank)
+    for dname, dtype in DTYPES.items():
+        x = torch.from_numpy(rng.normal(size=(n, chunk, width)).astype(np.float32)).to(dtype)
+        want = x.float().numpy().reshape(n * chunk, width)
+        for variant in ag_ops.VARIANTS:
+            kernels[f"ring_all_gather {variant} {dname}"] = _equal(
+                ag_ops.ring_all_gather_rank(x[my].to(dev), ranks, variant), want)
+        xa = torch.from_numpy(rng.normal(size=(n, n, chunk, width)).astype(np.float32))
+        xa = xa.to(dtype)
+        want = xa[:, my].float().numpy()
+        for variant in aa_ops.VARIANTS:
+            kernels[f"all_to_all {variant} {dname}"] = _equal(
+                aa_ops.all_to_all_rank(xa[my].to(dev), ranks, variant), want)
+    rng = np.random.default_rng(seed + 1)
+    be = CommBackend("latte", axis_devices=n, allow_stale_tables=True)
+    shard = rng.normal(size=(n, chunk, width)).astype(np.float32)
+    chunks = rng.normal(size=(n, n, chunk, width)).astype(np.float32)
+    backend = {}
+    for name, x, want in (("all_gather", shard[my], shard),
+                          ("all_to_all", chunks[my], chunks[:, my])):
+        xs = torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+        size = be.message_bytes(name, xs, ranks)
+        got = getattr(be, name)(xs, ranks)
+        backend[name] = (be.choose(name, size)[0], size, _equal(got, want))
+    if dev.type == "cuda":
+        ag_ops.check_ranks(ranks)
+        aa_ops.check_ranks(ranks)
+    return {"kernels": kernels, "backend": backend,
+            "launches": (ag_ops.launches_rank - before[0], aa_ops.launches_rank - before[1])}
+
+
+def main_procs(args) -> None:
+    """``--procs``: ``--ranks`` processes, one rank each."""
+    tpu_dispatch_tables(args.ranks)      # derived once here; the processes read the cache
+    outs = spawn(run_rank, args.ranks, device=args.device,
+                 args=(args.chunk, args.width, args.seed))
+    where = (f"{torch.cuda.get_device_name(0)} (every rank on cuda:r % "
+             f"{torch.cuda.device_count()})" if args.device != "cpu" else "cpu, gloo")
+    print(f"{args.ranks} ranks, one process each, on {where}; chunk [{args.chunk}, "
+          f"{args.width}]")
+    bad = []
+    for r, out in enumerate(outs):
+        for name, ok in out["kernels"].items():
+            print(f"  rank {r} {name:36s} {'OK' if ok else 'MISMATCH'}")
+            bad += [f"rank {r} {name}"] * (not ok)
+        for name, (variant, size, ok) in out["backend"].items():
+            print(f"  rank {r} CommBackend('latte').{name:11s} {size:>10d} B -> "
+                  f"{variant:16s} {'OK' if ok else 'MISMATCH'}")
+            bad += [f"rank {r} {name}"] * (not ok)
+    launched = [out["launches"] for out in outs]
+    print(f"  per-rank kernel launches (ring_all_gather, all_to_all) by rank: {launched}")
+    if bad:
+        raise SystemExit(f"mismatch: {bad}")
+    print("all collectives validated against their oracles")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--ranks", type=int, default=8)
@@ -91,7 +163,11 @@ def main() -> None:
     ap.add_argument("--width", type=int, default=1024, help="elements per row")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--procs", action="store_true",
+                    help="one process per rank (gloo group; CUDA IPC on the card)")
     args = ap.parse_args()
+    if args.procs:
+        return main_procs(args)
     ranks = coll.make_ranks(args.ranks, args.device)
     where = torch.cuda.get_device_name(ranks.device) if ranks.device.type == "cuda" else "cpu"
     print(f"{args.ranks} ranks emulated on {where}; chunk [{args.chunk}, {args.width}]")

@@ -27,13 +27,15 @@ from repro_torch.train.loop import train_loop
 from repro_torch.train.optimizer import AdamWConfig
 
 
-def with_encoder_feats(cfg, it, batch: int, seed: int, device="cpu"):
+def with_encoder_feats(cfg, it, batch: int, seed: int, device="cuda"):
     """The reference's stub of encoder features for the audio family: the
     same normal [batch, encoder_seq, d_model] draw from ``seed`` (a
-    generator on ``device``) added to every batch of ``it``; the other
-    families' batches pass through."""
+    generator on ``device``: the card unless the caller names the CPU)
+    added to every batch of ``it``; the other families' batches pass
+    through."""
     if cfg.family != "audio":
         return it
+    device = resolve_device(device)
     feats = torch.randn((batch, cfg.encdec.encoder_seq, cfg.d_model), device=device,
                         generator=torch.Generator(device=device).manual_seed(seed))
     return (dict(b, encoder_feats=feats) for b in it)

@@ -380,6 +380,103 @@ def test_rank_kernels_refused_launch_then_good_call(cuda):
         ag_ops.check()
 
 
+# ------------------------------------------- one rank per process (B3/B4) ----
+def _no_fallback(monkeypatch_like):
+    """Make every path a per-rank call on a CUDA tensor must not take raise:
+    the plain versions, the gloo schedules and the emulated launches."""
+    def refuse(*a, **k):
+        raise AssertionError("a per-rank call on the card left the per-rank kernel")
+    for mod, names in ((ag_ops, ("all_gather_ref", "all_gather_gloo", "ring_all_gather")),
+                       (aa_ops, ("all_to_all_ref", "all_to_all_gloo", "all_to_all"))):
+        for name in names:
+            monkeypatch_like(mod, name, refuse)
+
+
+def procs_bit_equal(ranks, seed):
+    """One process: every B3 / B4 variant per rank in f32 and bf16 (with
+    every other path refusing), then the emulated launch on the same
+    inputs; a refused per-rank launch raises and counts nothing."""
+    saved = {}
+
+    def patch(mod, name, fn):
+        saved[(mod, name)] = getattr(mod, name)
+        setattr(mod, name, fn)
+    _no_fallback(patch)
+    n, my, dev = ranks.n, ranks.rank, ranks.device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    got, inputs = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        xs = torch.randn((n, 5, 96), generator=g, device=dev).to(dtype)
+        xa = torch.randn((n, n, 3, 40), generator=g, device=dev).to(dtype)
+        inputs[dtype] = (xs, xa)
+        for v in ag_ops.VARIANTS:
+            got[("ag", v, dtype)] = ag_ops.ring_all_gather_rank(xs[my], ranks, v)
+        for v in aa_ops.VARIANTS:
+            got[("aa", v, dtype)] = aa_ops.all_to_all_rank(xa[my], ranks, v)
+    ag_ops.check_ranks(ranks)
+    aa_ops.check_ranks(ranks)
+    launched = (ag_ops.launches_rank, aa_ops.launches_rank)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    refused = []
+    for fn, x in ((ag_ops.ring_all_gather_rank, xs[my]), (aa_ops.all_to_all_rank, xa[my])):
+        try:
+            fn(x, ranks, "b2b", parts=sms // n + 1)
+        except RuntimeError as e:
+            refused.append(str(e))
+    for (mod, name), fn in saved.items():
+        setattr(mod, name, fn)
+    bad = []
+    for (kind, v, dtype), out in got.items():
+        xs, xa = inputs[dtype]
+        want = (ag_ops.ring_all_gather(xs, v) if kind == "ag" else aa_ops.all_to_all(xa, v))[my]
+        if not torch.equal(out, want):
+            bad.append((kind, v, str(dtype)))
+    return {"bad": bad, "launched": launched, "refused": refused,
+            "after_refused": (ag_ops.launches_rank, aa_ops.launches_rank)}
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_procs_bit_equal_to_emulated(cuda, n):
+    """n processes on the card, one rank each, through CUDA IPC: every
+    variant bit-equal to the emulated launch, with no other path taken."""
+    from repro_torch.core.procgroup import spawn
+    res = spawn(procs_bit_equal, n, device="cuda", args=(n,), timeout_s=300)
+    nv = (2 * len(ag_ops.VARIANTS), 2 * len(aa_ops.VARIANTS))
+    for r, out in enumerate(res):
+        assert out["bad"] == [], r
+        assert out["launched"] == nv, r
+        assert len(out["refused"]) == 2 and all("launch failed" in e for e in out["refused"])
+        assert out["after_refused"] == nv, r
+
+
+def procs_lost_flag(ranks):
+    """After a good call (which makes the buffers), rank 1 skips one: rank
+    0's wait runs out; the collective check raises on both; the next call
+    is right on both (fresh buffers)."""
+    xs = torch.arange(ranks.n * 4 * 8, dtype=torch.float32, device=ranks.device)
+    xs = xs.reshape(ranks.n, 4, 8)
+    ag_ops.ring_all_gather_rank(xs[ranks.rank], ranks, "b2b")
+    ag_ops.check_ranks(ranks)
+    if ranks.rank != 1:
+        ag_ops.ring_all_gather_rank(xs[ranks.rank], ranks, "b2b")
+    try:
+        ag_ops.check_ranks(ranks)
+        first = "no error"
+    except RuntimeError as e:
+        first = str(e)
+    again = ag_ops.ring_all_gather_rank(xs[ranks.rank], ranks, "b2b")
+    ag_ops.check_ranks(ranks)
+    return {"first": first, "again": torch.equal(again, xs.reshape(-1, 8))}
+
+
+def test_procs_lost_flag_raises_on_its_rank(cuda):
+    from repro_torch.core.procgroup import spawn
+    res = spawn(procs_lost_flag, 2, device="cuda", timeout_s=300)
+    assert "rank 0 gave up waiting" in res[0]["first"], res[0]
+    assert "rank(s) [0]" in res[1]["first"], res[1]
+    assert res[0]["again"] and res[1]["again"]
+
+
 # ------------------------------------------------------------- training ----
 @pytest.mark.parametrize("arch", ["qwen2-0.5b", "olmoe-1b-7b"])
 def test_train_step_on_card_matches_cpu(cuda, monkeypatch, arch):

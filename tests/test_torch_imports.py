@@ -33,7 +33,8 @@ def test_port_imports_no_jax_and_no_reference():
     assert "repro_torch.serve.engine" in out["imported"]
     assert "repro_torch.kernels.decode_attention.ops" in out["imported"]
     for name in ("kernels.ring_all_gather.ops", "kernels.ring_all_to_all.ops",
-                 "core.collectives", "core.backend", "core.latte_moe", "models.moe",
+                 "core.collectives", "core.procgroup", "core.backend", "core.latte_moe",
+                 "models.moe",
                  "launch.collectives", "core.dma", "core.dma.claims", "core.dma.sim",
                  "core.dma.dispatch", "core.serving_model", "serve.workload",
                  "models.transformer", "data.pipeline", "train.tree", "train.optimizer",

@@ -435,6 +435,21 @@ def test_train_launcher_draws_encoder_feats_on_its_device(monkeypatch):
     assert seen["device"] is resolved
 
 
+def test_encoder_feats_take_the_card_unless_cpu(monkeypatch):
+    """The audio family's stub features are drawn on the card unless the
+    caller names the CPU; without a card that raises, as every entry point
+    does."""
+    cfg = get_config("whisper-tiny").reduced()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        launch_train.with_encoder_feats(cfg, iter([{}]), 2, 0)
+    batch = next(launch_train.with_encoder_feats(cfg, iter([{}]), 2, 0, device="cpu"))
+    assert batch["encoder_feats"].device.type == "cpu"
+    assert batch["encoder_feats"].shape == (2, cfg.encdec.encoder_seq, cfg.d_model)
+    text = iter([{"tokens": 1}])
+    assert launch_train.with_encoder_feats(get_config("qwen2-0.5b"), text, 2, 0) is text
+
+
 def test_train_launcher_unported_family_raises():
     """Every family is ported; the launcher refuses vlm training, as the
     reference's does (its frontend is a stub)."""
