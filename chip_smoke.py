@@ -61,8 +61,23 @@ Phases, in order; each raises on failure and nothing is caught:
    fails the run.  ``[procs]`` lines give each rank's call ms (bf16, median
    of 5, all ranks released together by a gloo barrier): processes
    time-sliced on one card, not an interconnect figure and not a speed
-   result.  The per-rank launches are counted in each process (set to 0
-   just before) and summed as ``launches_by_path["procs"]``.
+   result.  At 4 processes also the ring reduce-scatter per rank
+   (``csrc/ring_reduce_scatter.cu``) and the ring all-reduce (it, then B3
+   ``b2b`` per rank) at 64 KiB and 1 MiB a rank, bf16 and f32, bit-equal
+   to the emulated rendering and within numpy's sum (f32 atol 1e-4; bf16
+   one ulp, 2^-7, of sum_e |x_e| per add); and olmoe-1b-7b's latte MoE
+   layer per rank at full width (``make_latte_moe`` with a
+   ``ProcessRanks``: d_model 2048, 64 experts, top-8, d_ff 1024, capacity
+   factor 1.25, bf16) at prefill size (512 tokens a rank) and decode size
+   (4), bit-equal to the emulated layer on the same tokens and weights,
+   each forward launching B4 per rank exactly twice; a ``[procs-moe]`` line
+   holds the expert products at batch E against batch E / n on the same
+   rows.  At 8 processes the ring reduce-scatter at 1 MiB too.  The
+   per-rank launches are counted in each process (set to 0 just before)
+   and summed as ``launches_by_path["procs"]``; the reduce-scatter kernel's
+   row of the kernels line takes its per-rank call ms at 4 processes and 1
+   MiB, beside the emulated rendering's and ``sum(0)``'s device ms on the
+   same global input.
 8. Serving olmoe-1b-7b at full width (16 layers, d_model 2048, 16 heads,
    64 experts, top-8, d_ff_expert 1024, capacity factor 1.25, vocab 50,304,
    bf16, random weights from a seed) with phase 4's batch, context, checks
@@ -152,8 +167,10 @@ Phases, in order; each raises on failure and nothing is caught:
 20. One JSON line naming every ported kernel with its launches on its path
     (phases 4, 8 and 13 for B1/B2, phases 7 and 7b for B3/B4, and phase
     19's, also given alone as ``launches_in_twins``; B3/B4 also by path in
-    ``launches_by_path``, with the per-rank launches as ``procs``; no
-    kernel lies on the training, recurrent or dry-run paths).
+    ``launches_by_path``, with the per-rank launches as ``procs``), and the
+    ring reduce-scatter (no TPU kernel: the reference's ``ppermute`` ring)
+    with its per-rank launches of phase 7b; no kernel lies on the training,
+    recurrent or dry-run paths.
 21. Last line: ``{"ok": true, "device": {...}}``.  A ``[phase] name s``
     line follows each phase with its wall seconds.
 
@@ -183,17 +200,24 @@ ARCH = "qwen2-0.5b"
 SOURCES = {"paged_kv_gather": "src/repro_torch/kernels/csrc/paged_kv_gather.cu",
            "paged_decode_attention": "src/repro_torch/kernels/csrc/decode_attention.cu",
            "ring_all_gather": "src/repro_torch/kernels/csrc/ring_all_gather.cu",
-           "all_to_all": "src/repro_torch/kernels/csrc/ring_all_to_all.cu"}
+           "all_to_all": "src/repro_torch/kernels/csrc/ring_all_to_all.cu",
+           "ring_reduce_scatter": "src/repro_torch/kernels/csrc/ring_reduce_scatter.cu"}
 RANKS = 8                                    # emulated ranks of the collectives
 ROW = 1024                                   # elements per row of a rank's chunk
 GATHERED = {"64KiB": 64 << 10, "1MiB": 1 << 20, "16MiB": 16 << 20, "256MiB": 256 << 20}
 L2_BYTES = 50e6                              # H100 L2 cache
 MOE_ARCH, MOE_TOKENS = "olmoe-1b-7b", 512    # latte MoE: tokens per rank
 MOE_DECODE_TOKENS = 4                        # ... and at decode
-# one rank per process: (processes, sizes a rank, B3 variants, B4 variants)
-PROCS_RUNS = ((4, ("64KiB", "1MiB", "64MiB"), ("b2b", "bcst_b2b"), ("b2b", "per_round")),
-              (8, ("1MiB",), ("b2b", "bcst_b2b"), ("b2b", "per_round")),
-              (6, ("1MiB",), (), ("b2b", "per_round")))
+# one rank per process: processes, sizes a rank of B3 / B4, their variants,
+# sizes a rank of the ring reduce-scatter, whether the ring all-reduce runs
+# too, and whether the latte MoE layer runs
+PROCS_RUNS = (dict(n=4, sizes=("64KiB", "1MiB", "64MiB"), ag=("b2b", "bcst_b2b"),
+                   aa=("b2b", "per_round"), rs=("64KiB", "1MiB"), ar=True, moe=True),
+              dict(n=8, sizes=("1MiB",), ag=("b2b", "bcst_b2b"), aa=("b2b", "per_round"),
+                   rs=("1MiB",), ar=False, moe=False),
+              dict(n=6, sizes=("1MiB",), ag=(), aa=("b2b", "per_round"), rs=(), ar=False,
+                   moe=False))
+PROCS_RS_ROW = (4, "1MiB")          # the reduce-scatter's row of the kernels line
 PROCS_BYTES = {"64KiB": 64 << 10, "1MiB": 1 << 20, "64MiB": 64 << 20}
 PROCS_REPS = 5
 TRAIN_B, TRAIN_S = 4, 1024                   # training: batch x sequence (4,096 tokens)
@@ -965,17 +989,101 @@ def _rank_call_ms(ranks, fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def procs_rank(ranks, sizes, ag_variants, aa_variants, seed) -> dict:
+def _sum_oracle(xc: torch.Tensor, rows) -> tuple[np.ndarray, np.ndarray]:
+    """numpy's sum over ranks (float64) of the addends xc [n (from), n (for),
+    ...] for the ``rows`` kept, and its tolerance: f32 atol 1e-4; bf16 one
+    ulp (2^-7) of sum_e |x_e| for each of the n - 1 adds."""
+    x = xc.double().cpu().numpy()[:, rows]
+    n = xc.shape[0]
+    atol = 1e-4 if xc.dtype == torch.float32 else 2.0 ** -7 * (n - 1) * np.abs(x).sum(0)
+    return x.sum(0), atol
+
+
+def procs_reductions(ranks, labels, all_reduce, g, bad, call, err) -> int:
+    """Phase 7b's reductions on this rank: the ring reduce-scatter per rank
+    (and the ring all-reduce) at each size, bf16 and f32, bit-equal to the
+    emulated rendering (``err``: the largest difference, bf16) and within
+    numpy's sum; bf16 call ms.  Returns the results checked."""
+    from repro_torch.core import collectives as coll
+    n, my, dev = ranks.n, ranks.rank, ranks.device
+    emulated, checked = coll.make_ranks(n, dev), 0
+    for label in labels:
+        for dtype in (torch.bfloat16, torch.float32):
+            rows = PROCS_BYTES[label] // n // (ROW * torch.finfo(dtype).bits // 8)
+            xc = _randn(g, (n, n, rows, ROW), dtype, dev)    # rank j's addends: xc[j]
+            cases = [("ring_reduce_scatter", coll.ring_reduce_scatter, my)]
+            if all_reduce:
+                cases.append(("ring_all_reduce", coll.ring_all_reduce, slice(None)))
+            for name, fn, rows_kept in cases:
+                got = fn(xc[my], ranks)
+                want, atol = _sum_oracle(xc, rows_kept)
+                if not (np.abs(got.double().cpu().numpy() - want) <= atol).all():
+                    bad.append(f"rank {my}: {name} {label} {dtype} differs from numpy's sum")
+                plain = fn(xc, emulated)[my]
+                if not torch.equal(got, plain):
+                    bad.append(f"rank {my}: {name} {label} {dtype} differs from the emulated "
+                               f"rendering")
+                checked += 1
+                if dtype == torch.bfloat16:
+                    err[f"{name} {label}"] = (got.float() - plain.float()).abs().max().item()
+                    call[f"{name} {label}"] = _rank_call_ms(ranks, lambda: fn(xc[my], ranks),
+                                                            PROCS_REPS)
+            del xc
+            torch.cuda.empty_cache()
+    return checked
+
+
+def procs_moe(ranks, g, bad, call) -> dict:
+    """Phase 7b's latte MoE layer on this rank: olmoe-1b-7b at full width,
+    bf16, at prefill and decode size, bit-equal to the emulated layer on the
+    same tokens and weights, each forward launching B4 per rank twice; bf16
+    call ms."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import collectives as coll
+    from repro_torch.core.latte_moe import make_latte_moe
+    from repro_torch.kernels.ring_all_to_all import ops as aa
+    from repro_torch.models.moe import init_moe
+    n, my, dev = ranks.n, ranks.rank, ranks.device
+    base = get_config(MOE_ARCH)
+    cfg = dataclasses.replace(base, compute_dtype="bfloat16", moe=dataclasses.replace(
+        base.moe, capacity_factor=1.25))
+    params = {k: v.to(torch.bfloat16) for k, v in init_moe(cfg, g).items()}
+    moe, emulated = make_latte_moe(cfg, ranks), make_latte_moe(cfg, coll.make_ranks(n, dev))
+    out = {"checked": 0, "a2a_per_forward": {}}
+    for label, tokens in (("prefill", MOE_TOKENS), ("decode", MOE_DECODE_TOKENS)):
+        x = _randn(g, (n, tokens, cfg.d_model), torch.bfloat16, dev)   # rank j's: x[j]
+        before = aa.launches_rank
+        got, aux = moe(params, x[my:my + 1])
+        out["a2a_per_forward"][label] = aa.launches_rank - before
+        want, want_aux = emulated(params, x)
+        if not (torch.equal(got[0], want[my]) and torch.equal(aux, want_aux)):
+            err = (got[0].float() - want[my].float()).abs().max().item()
+            bad.append(f"rank {my}: latte MoE {label} differs from the emulated layer by {err}")
+        if not torch.isfinite(got).all():
+            bad.append(f"rank {my}: latte MoE {label} is not finite")
+        out["checked"] += 1
+        call[f"latte_moe {label}"] = _rank_call_ms(ranks, lambda: moe(params, x[my:my + 1]),
+                                                   PROCS_REPS)
+        del x, got, want
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def procs_rank(ranks, run, seed) -> dict:
     """One process of phase 7b: its rank of every B3 / B4 variant at each
     size, in bf16 and f32, against the numpy oracle and the emulated single
     launch on the same inputs (every rank makes the global inputs from
-    ``seed`` on its card); bf16 call ms."""
+    ``seed`` on its card); then the reductions and the latte MoE layer as
+    ``run`` asks; bf16 call ms."""
     from repro_torch.kernels.ring_all_gather import ops as ag
     from repro_torch.kernels.ring_all_to_all import ops as aa
+    from repro_torch.kernels.ring_reduce_scatter import ops as rs
     n, my, dev = ranks.n, ranks.rank, ranks.device
+    sizes, ag_variants, aa_variants = run["sizes"], run["ag"], run["aa"]
     g = torch.Generator(device=dev).manual_seed(seed)
-    bad, call, checked = [], {}, 0
-    ag.launches_rank = aa.launches_rank = 0
+    bad, call, err, checked = [], {}, {}, 0
+    ag.launches_rank = aa.launches_rank = rs.launches_rank = 0
     for label in sizes:
         for dtype in (torch.bfloat16, torch.float32):
             rows = PROCS_BYTES[label] // n // (ROW * torch.finfo(dtype).bits // 8)
@@ -999,39 +1107,84 @@ def procs_rank(ranks, sizes, ag_variants, aa_variants, seed) -> dict:
                     call[f"{name} {v} {label}"] = _rank_call_ms(ranks, per_rank, PROCS_REPS)
             del xs, xa, oracles, cases
             torch.cuda.empty_cache()
+    checked += procs_reductions(ranks, run["rs"], run["ar"], g, bad, call, err)
+    moe = procs_moe(ranks, g, bad, call) if run["moe"] else None
     ag.check_ranks(ranks)
     aa.check_ranks(ranks)
+    rs.check_ranks(ranks)
     ag.check()
     aa.check()
-    return {"bad": bad, "call_ms": call, "checked": checked,
-            "launches": {"ring_all_gather": ag.launches_rank, "all_to_all": aa.launches_rank}}
+    return {"bad": bad, "call_ms": call, "err": err, "checked": checked, "moe": moe,
+            "launches": {"ring_all_gather": ag.launches_rank, "all_to_all": aa.launches_rank,
+                         "ring_reduce_scatter": rs.launches_rank}}
+
+
+def _rs_row(dev, res: list) -> dict:
+    """The reduce-scatter kernel's row of the kernels line at ``PROCS_RS_ROW``
+    from the ranks' results ``res``: its per-rank call ms (median over
+    ranks) and largest difference from the emulated rendering; the emulated
+    rendering's and ``sum(0)``'s device ms on a global input of the same
+    shape; the bound of the whole function: the n x n addends read once and
+    the n results written once, n - 1 float32 adds per result element."""
+    from repro_torch.core import collectives as coll
+    n, label = PROCS_RS_ROW
+    rows = PROCS_BYTES[label] // n // (ROW * 2)
+    xc = _randn(torch.Generator(device=dev).manual_seed(9), (n, n, rows, ROW), torch.bfloat16,
+                dev)
+    emulated = coll.make_ranks(n, dev)
+    n_bytes = (xc.numel() + xc[0].numel()) * xc.element_size()
+    bound = bound_ms(n_bytes, xc[0].numel() * (n - 1), torch.float32)
+    key = f"ring_reduce_scatter {label}"
+    return {"kernel_ms": statistics.median(r["call_ms"][key] for r in res),
+            "plain_ms": device_ms(lambda: coll.ring_reduce_scatter(xc, emulated)),
+            "library_ms": device_ms(lambda: xc.sum(0)),
+            "bound_ms": bound[0], "bound_by": bound[1],
+            "max_abs_err": max(r["err"][key] for r in res),
+            "shape": f"{n} processes x [{n},{rows},{ROW}] bf16 ({label} a rank)"}
 
 
 def phase_collectives_procs(dev) -> dict:
-    """Phase 7b: B3 and B4 with one rank per process (``PROCS_RUNS``)."""
+    """Phase 7b: B3, B4, the ring reduce-scatter and all-reduce and the
+    latte MoE layer with one rank per process (``PROCS_RUNS``)."""
     from repro_torch.core.procgroup import spawn
-    launches = {"ring_all_gather": 0, "all_to_all": 0}
-    for n, sizes, ag_variants, aa_variants in PROCS_RUNS:
+    launches = {"ring_all_gather": 0, "all_to_all": 0, "ring_reduce_scatter": 0}
+    rs_row = None
+    for run in PROCS_RUNS:
+        n = run["n"]
         t0 = time.perf_counter()
-        res = spawn(procs_rank, n, device=dev.type, args=(sizes, ag_variants, aa_variants, 20 + n),
-                    timeout_s=600)
+        res = spawn(procs_rank, n, device=dev.type, args=(run, 20 + n), timeout_s=600)
         bad = [b for r in res for b in r["bad"]]
         if bad:
             raise AssertionError(f"{n} processes: {bad[:8]}")
         for r in res:
             for name in launches:
                 launches[name] += r["launches"][name]
-        for name, variants in (("ring_all_gather", ag_variants), ("all_to_all", aa_variants)):
+        for name, variants in (("ring_all_gather", run["ag"]), ("all_to_all", run["aa"]),
+                               ("ring_reduce_scatter", run["rs"])):
             if variants and any(r["launches"][name] == 0 for r in res):
                 raise AssertionError(f"{n} processes: a rank never launched {name} per rank")
         by_rank = {key: [r["call_ms"][key] for r in res] for key in res[0]["call_ms"]}
         log(f"[procs] {n} processes on one card, one rank each (CUDA IPC, system-scope flags): "
-            f"{sum(r['checked'] for r in res)} results bit-equal to numpy and to the emulated "
-            f"launch; {time.perf_counter() - t0:.3f}s; per-rank launches "
-            f"{[r['launches'] for r in res]}")
+            f"{sum(r['checked'] for r in res)} results bit-equal to the emulated launch or "
+            f"rendering and to numpy (sums within its tolerance); "
+            f"{time.perf_counter() - t0:.3f}s; per-rank launches {[r['launches'] for r in res]}")
         log(f"[procs] {n} processes, bf16 call ms by rank (processes time-sliced on one card: "
             f"not an interconnect figure and not a speed result): {json.dumps(by_rank)}")
-    return launches
+        if run["moe"]:
+            moe = [r["moe"] for r in res]
+            if any(m["a2a_per_forward"] != {"prefill": 2, "decode": 2} for m in moe):
+                raise AssertionError(f"a latte MoE forward per rank did not launch B4 per rank "
+                                     f"twice: {[m['a2a_per_forward'] for m in moe]}")
+            log(f"[procs-moe] {MOE_ARCH} latte MoE per rank, full width, bf16, {n} processes x "
+                f"{MOE_TOKENS} (prefill) and {MOE_DECODE_TOKENS} (decode) tokens: "
+                f"{sum(m['checked'] for m in moe)} forwards bit-equal to the emulated layer, B4 "
+                f"per rank {moe[0]['a2a_per_forward']} a forward")
+        if (n, PROCS_RS_ROW[1]) == PROCS_RS_ROW:
+            rs_row = _rs_row(dev, res)
+            log(f"[kernel] ring_reduce_scatter per rank (per-rank call ms, processes "
+                f"time-sliced on one card; plain and library: device ms on one process): "
+                f"{json.dumps(rs_row)}")
+    return {"launches": launches, "ring_reduce_scatter": rs_row}
 
 
 def phase_moe_exactness(dev) -> None:
@@ -1742,7 +1895,8 @@ def main() -> int:
     run("exact_" + ARCH, phase_exactness, dev, ARCH, seed=1)
     run("rank_kernels", check_rank_kernels, dev)
     path = run("collectives_path", phase_collectives_path, dev)
-    procs = run("collectives_procs", phase_collectives_procs, dev)
+    procs_out = run("collectives_procs", phase_collectives_procs, dev)
+    procs = procs_out["launches"]
     run("moe_exact", phase_moe_exactness, dev)
     launches.update(path["launches"])
     moe_launches = run("serve_" + MOE_ARCH, phase_serving, dev, get_config(MOE_ARCH), seed=2)
@@ -1799,18 +1953,21 @@ def main() -> int:
             ("ring_all_gather", path["ring_all_gather"],
              "src/repro/kernels/ring_all_gather/ring_all_gather.py:144"),
             ("all_to_all", path["all_to_all"],
-             "src/repro/kernels/ring_all_to_all/ring_all_to_all.py:87")):
-        if name != "paged_decode_attention" and launches[name] == 0:
+             "src/repro/kernels/ring_all_to_all/ring_all_to_all.py:87"),
+            # no TPU kernel: the port's rendering of the reference's ppermute ring
+            ("ring_reduce_scatter", procs_out["ring_reduce_scatter"],
+             "src/repro/core/collectives.py:97")):
+        if name != "paged_decode_attention" and launches.get(name, 0) + procs.get(name, 0) == 0:
             raise AssertionError(f"the main path never launched {name}")
         entry = {"name": name, "route": "cuda", "source": SOURCES[name],
-                 "replaces": replaces, "launches": launches[name],
+                 "replaces": replaces, "launches": launches.get(name, 0),
                  "launches_in_twins": twins.get(name, 0),
                  "on_main_path": name != "paged_decode_attention",
                  "max_abs_err": row["max_abs_err"], "ms": row["kernel_ms"],
                  "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                  "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
         if name in procs:
-            entry["launches_by_path"] = {"collectives_path": path["launches"][name],
+            entry["launches_by_path"] = {"collectives_path": path["launches"].get(name, 0),
                                          "twins": twins.get(name, 0), "procs": procs[name]}
             entry["launches"] += procs[name]
         if name == "paged_kv_gather":

@@ -273,11 +273,14 @@ class CommBackend:
 
     def reduce_scatter(self, xs, ranks):
         """xs [n, n, *chunk] addends -> [n, *chunk], row i = sum_e xs[e, i].
-        Not over processes yet: its renderings raise for a ``ProcessRanks``."""
+        Over processes: this rank's addends x [n, *chunk] -> [*chunk], the
+        sum over ranks of their addends for this rank."""
         return self._run("reduce_scatter", xs, ranks)
 
     def all_reduce(self, xs, ranks):
-        """xs [n, n, *chunk] -> [n, n, *chunk], every rank's copy of the sum."""
+        """xs [n, n, *chunk] -> [n, n, *chunk], every rank's copy of the sum.
+        Over processes: this rank's x [n, *chunk] -> [n, *chunk], its copy of
+        ``out[j] = sum_e x_e[j]``."""
         return self._run("all_reduce", xs, ranks)
 
     def kv_fetch_plan(self, n_blocks: int, block_bytes: int) -> dict:

@@ -17,7 +17,8 @@ Renderings, and what each runs on the device of ``xs``:
 * ``pairwise_all_to_all``: CPU, n-1 rounds with the XOR partner (rotation
   when n is not a power of two); CUDA, B4 ``b2b``.
 * ``ring_reduce_scatter``: n-1 shift-and-add steps on every device (the
-  reference has no kernel for it).
+  reference has no kernel for it, so over emulated ranks it stays tensor
+  code).
 * ``ring_all_reduce``: the reduce-scatter, then ``ring_all_gather``.
 
 On the CPU each rendering runs its own schedule, step by step, so the CPU
@@ -27,14 +28,19 @@ schedule is the same ring or pairing.  The ``reference_*`` functions are one
 PyTorch call each, the counterpart of XLA's one-shot collectives (the
 reference backend of ``CommBackend``), not the kernels' plain versions.
 
-One rank per process: ``ring_all_gather``, ``bidir_ring_all_gather`` and
-``pairwise_all_to_all`` also take a ``core.procgroup.ProcessRanks`` and this
-rank's operand, exactly as the reference's functions are called inside
-``shard_map`` (``x [*shard] -> [n, *shard]``; ``x [n, *chunk] -> [n,
-*chunk]`` with ``out[j]`` rank j's chunk for this rank).  CUDA: one
-per-rank launch of B3 ``b2b`` / ``bcst_b2b`` or B4 ``b2b``, storing into
-peers' memory through CUDA IPC; CPU: the same schedules over gloo.  The
-reductions over processes are not ported yet (ROADMAP 10c).
+One rank per process: every function also takes a
+``core.procgroup.ProcessRanks`` and this rank's operand, exactly as the
+reference's functions are called inside ``shard_map``: all-gather ``x
+[*shard] -> [n, *shard]``; all-to-all ``x [n, *chunk] -> [n, *chunk]``
+with ``out[j]`` rank j's chunk for this rank; reduce-scatter ``x [n,
+*chunk] -> [*chunk]``, ``sum_e x_e[this rank]``; all-reduce ``x [n, *chunk]
+-> [n, *chunk]``, ``out[j] = sum_e x_e[j]``.  CUDA: per-rank launches of B3
+``b2b`` / ``bcst_b2b``, B4 ``b2b`` and the ring reduce-scatter
+(``kernels/csrc/ring_reduce_scatter.cu``), storing into peers' memory through
+CUDA IPC; the one-shots go through B3 ``pcpy`` and B4 ``per_round``.  CPU:
+the same schedules over gloo, and gloo's own collectives for the one-shots.
+No library collective touches a CUDA tensor, and no CUDA tensor goes
+through the CPU.
 """
 from __future__ import annotations
 
@@ -46,6 +52,7 @@ from repro_torch.compat import resolve_device
 from repro_torch.core.procgroup import ProcessRanks
 from repro_torch.kernels.ring_all_gather import ops as ag_ops
 from repro_torch.kernels.ring_all_to_all import ops as aa_ops
+from repro_torch.kernels.ring_reduce_scatter import ops as rs_ops
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,13 +102,17 @@ def _gather_rank(x: torch.Tensor, ranks: ProcessRanks, variant: str) -> torch.Te
     return out.reshape(ranks.n, *x.shape)
 
 
-def _all_to_all_rank(x: torch.Tensor, ranks: ProcessRanks, variant: str) -> torch.Tensor:
-    """This rank's chunks [n, *chunk] -> [n, *chunk] through B4 per rank."""
+def _per_rank_chunks(x: torch.Tensor, ranks: ProcessRanks) -> torch.Tensor:
+    """This rank's chunks [n, *chunk] -> [n, 1, numel(chunk)]."""
     n = ranks.n
     if x.dim() < 1 or x.shape[0] != n:
         raise ValueError(f"expected a leading rank dim of size {n}, got {tuple(x.shape)}")
-    out = aa_ops.all_to_all_rank(x.contiguous().reshape(n, 1, -1), ranks, variant)
-    return out.reshape(x.shape)
+    return x.contiguous().reshape(n, 1, -1)
+
+
+def _all_to_all_rank(x: torch.Tensor, ranks: ProcessRanks, variant: str) -> torch.Tensor:
+    """This rank's chunks [n, *chunk] -> [n, *chunk] through B4 per rank."""
+    return aa_ops.all_to_all_rank(_per_rank_chunks(x, ranks), ranks, variant).reshape(x.shape)
 
 
 def ring_all_gather(xs: torch.Tensor, ranks: RankGroup | ProcessRanks) -> torch.Tensor:
@@ -185,17 +196,21 @@ def pairwise_all_to_all(xs: torch.Tensor, ranks: RankGroup | ProcessRanks) -> to
     return out
 
 
-def ring_reduce_scatter(xs: torch.Tensor, ranks: RankGroup) -> torch.Tensor:
+def ring_reduce_scatter(xs: torch.Tensor, ranks: RankGroup | ProcessRanks) -> torch.Tensor:
     """Ring reduce-scatter.  xs [n, n, *chunk] (xs[e, i] is rank e's addend
-    for rank i) -> [n, *chunk], row i = ``sum_e xs[e, i]``.
+    for rank i) -> [n, *chunk], row i = ``sum_e xs[e, i]``.  Over processes:
+    this rank's addends x [n, *chunk] -> [*chunk], ``sum_e x_e[this rank]``.
 
     The partial destined for rank o starts at its successor o+1, travels the
     ring forward for n-1 hops, and each visited rank folds in its own
     contribution: at step r rank i holds (and sends) the partial destined for
-    ``(i - r - 1) % n``.  Tensor code on every device: the reference has no
-    kernel for it.
+    ``(i - r - 1) % n``.  Over emulated ranks, tensor code on every device
+    (the reference has no kernel for it); over processes, the per-rank ring
+    kernel on CUDA and the same ring over gloo on the CPU, bit-equal to it.
     """
-    _not_over_processes(ranks)
+    if isinstance(ranks, ProcessRanks):
+        out = rs_ops.reduce_scatter_rank(_per_rank_chunks(xs, ranks), ranks)
+        return out.reshape(xs.shape[1:])
     ranks.check(xs, lead=2)
     n = ranks.n
     idx = torch.arange(n, device=xs.device)
@@ -206,15 +221,10 @@ def ring_reduce_scatter(xs: torch.Tensor, ranks: RankGroup) -> torch.Tensor:
     return acc
 
 
-def _not_over_processes(ranks) -> None:
-    if isinstance(ranks, ProcessRanks):
-        raise NotImplementedError("reduce-scatter and all-reduce over processes are not "
-                                  "ported yet (ROADMAP 10c)")
-
-
-def ring_all_reduce(xs: torch.Tensor, ranks: RankGroup) -> torch.Tensor:
+def ring_all_reduce(xs: torch.Tensor, ranks: RankGroup | ProcessRanks) -> torch.Tensor:
     """Ring reduce-scatter + ring all-gather.  xs [n, n, *chunk] -> [n, n,
-    *chunk], every rank's copy of ``out[j] = sum_e xs[e, j]``."""
+    *chunk], every rank's copy of ``out[j] = sum_e xs[e, j]``.  Over
+    processes: this rank's x [n, *chunk] -> [n, *chunk], its copy."""
     return ring_all_gather(ring_reduce_scatter(xs, ranks), ranks)
 
 
@@ -245,14 +255,20 @@ def reference_all_to_all(xs: torch.Tensor, ranks: RankGroup | ProcessRanks) -> t
     return xs.transpose(0, 1).contiguous()
 
 
-def reference_reduce_scatter(xs: torch.Tensor, ranks: RankGroup) -> torch.Tensor:
-    """Full sum over ranks; row i is rank i's chunk."""
-    _not_over_processes(ranks)
+def reference_reduce_scatter(xs: torch.Tensor, ranks: RankGroup | ProcessRanks) -> torch.Tensor:
+    """Full sum over ranks; row i is rank i's chunk.  Over processes: the
+    one-shot all-to-all of this rank's addends, then their sum (the
+    reference's "full psum, keep this rank's chunk" with 1/n of the bytes)."""
+    if isinstance(ranks, ProcessRanks):
+        return reference_all_to_all(xs, ranks).sum(0)
     ranks.check(xs, lead=2)
     return xs.sum(0)
 
 
-def reference_all_reduce(xs: torch.Tensor, ranks: RankGroup) -> torch.Tensor:
-    _not_over_processes(ranks)
+def reference_all_reduce(xs: torch.Tensor, ranks: RankGroup | ProcessRanks) -> torch.Tensor:
+    """Every rank's copy of the sum over ranks.  Over processes: the
+    one-shot all-gather of this rank's x [n, *chunk], then the sum."""
+    if isinstance(ranks, ProcessRanks):
+        return reference_all_gather(xs, ranks).sum(0)
     ranks.check(xs)
     return xs.sum(0, keepdim=True).expand(xs.shape).contiguous()

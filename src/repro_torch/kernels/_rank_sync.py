@@ -331,24 +331,27 @@ def release_symmetric(ranks) -> None:
 class RankKernel:
     """One collective library (``csrc/<name>.cu``), built at first use: its C
     entries ``name(in, out, n, chunk_bytes, parts, variant flags..., flags,
-    epoch, device, stream)`` (emulated ranks) and ``name_rank(my, n, in,
-    outs, flags, chunk_bytes, parts, variant flags..., epoch, device,
-    stream)`` (one rank per process), its flag buffers, its symmetric
-    buffers (``slots`` per set) and its error word."""
+    epoch, device, stream)`` (emulated ranks, where the library has them)
+    and ``name_rank(my, n, in, outs, flags,
+    chunk_bytes, parts, variant flags..., epoch, device, stream)`` (one rank
+    per process), its flag buffers, its symmetric buffers (``slots`` per set)
+    and its error word."""
 
     def __init__(self, name: str, n_variant_flags: int, raises=two_per_part, slots: int = 1):
         lib = _build.load(name)
         vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         self.name = name
-        self._fn = getattr(lib, name)
-        self._fn.argtypes = [vp, vp, i, ll, i, *[i] * n_variant_flags, vp, i, i, vp]
-        self._fn.restype = i
         self._fn_rank = getattr(lib, f"{name}_rank")
         self._fn_rank.argtypes = [i, i, vp, vp, vp, ll, i, *[i] * n_variant_flags, i, i, vp]
         self._fn_rank.restype = i
-        flag_ints = getattr(lib, f"{name}_flag_ints")
-        flag_ints.argtypes, flag_ints.restype = [i, i], ll
-        self.flags = FlagBuffers(flag_ints, raises)
+        self.flags = None
+        if hasattr(lib, name):
+            self._fn = getattr(lib, name)
+            self._fn.argtypes = [vp, vp, i, ll, i, *[i] * n_variant_flags, vp, i, i, vp]
+            self._fn.restype = i
+            flag_ints = getattr(lib, f"{name}_flag_ints")
+            flag_ints.argtypes, flag_ints.restype = [i, i], ll
+            self.flags = FlagBuffers(flag_ints, raises)
         rank_flag_ints = getattr(lib, f"{name}_rank_flag_ints")
         rank_flag_ints.argtypes, rank_flag_ints.restype = [i, i], ll
         self.symmetric = _SYMMETRIC[name] = SymmetricBuffers(rank_flag_ints, raises, slots)
@@ -367,7 +370,8 @@ class RankKernel:
         code = self._error.value
         if code:
             self._error.value = 0
-            self.flags.clear()
+            if self.flags is not None:
+                self.flags.clear()
             raise RuntimeError(describe(self.name, code))
 
     def check_ranks(self, ranks) -> None:
@@ -407,16 +411,20 @@ class RankKernel:
         self.flags.give_back(key, buf, epoch)
 
     def launch_rank(self, x: torch.Tensor, ranks, out: torch.Tensor, chunk_bytes: int,
-                    parts: int, variant_flags: tuple[int, ...], layout: int) -> None:
+                    parts: int, variant_flags: tuple[int, ...], layout: int,
+                    sym_bytes: int | None = None) -> None:
         """This rank's launch (``parts`` CTAs, the same on every rank) on the
         current stream into its slot of the symmetric output, then the copy
-        of that output into ``out`` (contiguous, as is ``x``), on the same
-        stream.  Every rank of ``ranks`` must make the same call.  Raises if
-        the launch is refused."""
+        of that output's first bytes into ``out`` (contiguous, as is ``x``),
+        on the same stream.  The symmetric output holds ``sym_bytes`` (``out``'s
+        bytes unless more are asked for: the kernel's scratch past them).
+        Every rank of ``ranks`` must make the same call.  Raises if the launch
+        is refused."""
         n, dev = ranks.n, x.device.index
         stream = torch._C._cuda_getCurrentRawStream(dev)
         out_bytes = out.numel() * out.element_size()
-        sym, slot, epoch = self.symmetric.take(ranks, out_bytes, parts, layout, stream)
+        sym, slot, epoch = self.symmetric.take(ranks, sym_bytes or out_bytes, parts, layout,
+                                               stream)
         flags, outs = sym.slot(slot)
         table = ctypes.c_void_p * n
         err = self._fn_rank(ranks.rank, n, x.data_ptr(), table(*outs), table(*flags),

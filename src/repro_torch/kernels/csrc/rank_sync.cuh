@@ -1,5 +1,8 @@
 // Flags, waits and byte copies shared by the rank collectives
-// (ring_all_gather.cu, ring_all_to_all.cu).
+// (ring_all_gather.cu, ring_all_to_all.cu; ring_reduce_scatter.cu uses them
+// on its per-rank path only, at Scope::kSys: RankFlags, error_code, wait_for,
+// raise_flags, copy_words, word_bytes, prepare_call, the error word, kThreads,
+// kUnroll and kSysWaitNs, so a change to any of them changes that kernel too).
 //
 // Each collective has two paths, with one kernel body:
 //

@@ -11,7 +11,8 @@ collectives with the variant its dispatch table picks.  Counterpart of
 (``core.procgroup.spawn``): every B3 and B4 variant runs per rank (each
 process launches its own rank's CTAs and stores into its peers' memory
 through CUDA IPC; over gloo on the CPU), bit-equal to its numpy oracle, then
-``CommBackend('latte')``'s all-gather and all-to-all over the processes.
+``CommBackend('latte')`` on the four collectives over the processes (the
+reductions through the per-rank ring reduce-scatter kernel).
 
 Data is made with numpy from ``--seed``.  All-gather and all-to-all must be
 bit-equal to their oracles; reduce-scatter and all-reduce (float32) within
@@ -30,6 +31,7 @@ from repro_torch.core.backend import COLLECTIVES, CommBackend, tpu_dispatch_tabl
 from repro_torch.core.procgroup import ProcessRanks, spawn
 from repro_torch.kernels.ring_all_gather import ops as ag_ops
 from repro_torch.kernels.ring_all_to_all import ops as aa_ops
+from repro_torch.kernels.ring_reduce_scatter import ops as rs_ops
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -94,13 +96,14 @@ def run_backend(ranks: coll.RankGroup, chunk: int, width: int, seed: int) -> dic
 
 def run_rank(ranks: ProcessRanks, chunk: int, width: int, seed: int) -> dict:
     """One process of ``--procs``: every B3/B4 variant per rank in f32 and
-    bf16 against its numpy oracle, then ``CommBackend('latte')``'s
-    all-gather and all-to-all (f32).  Every rank makes the same inputs from
-    ``seed`` and keeps its own part.  Returns {"kernels": {name: ok},
-    "backend": {collective: (variant, bytes, ok)}, "launches": (B3, B4)}."""
+    bf16 against its numpy oracle, then ``CommBackend('latte')`` on the four
+    collectives (f32; the reductions within atol 1e-4 of numpy's sum).
+    Every rank makes the same inputs from ``seed`` and keeps its own part.
+    Returns {"kernels": {name: ok}, "backend": {collective: (variant, bytes,
+    ok)}, "launches": (B3, B4, reduce-scatter)}."""
     n, my, dev = ranks.n, ranks.rank, ranks.device
     rng, kernels = np.random.default_rng(seed), {}
-    before = (ag_ops.launches_rank, aa_ops.launches_rank)
+    before = (ag_ops.launches_rank, aa_ops.launches_rank, rs_ops.launches_rank)
     for dname, dtype in DTYPES.items():
         x = torch.from_numpy(rng.normal(size=(n, chunk, width)).astype(np.float32)).to(dtype)
         want = x.float().numpy().reshape(n * chunk, width)
@@ -117,18 +120,24 @@ def run_rank(ranks: ProcessRanks, chunk: int, width: int, seed: int) -> dict:
     be = CommBackend("latte", axis_devices=n, allow_stale_tables=True)
     shard = rng.normal(size=(n, chunk, width)).astype(np.float32)
     chunks = rng.normal(size=(n, n, chunk, width)).astype(np.float32)
+    total = chunks.sum(axis=0)
     backend = {}
-    for name, x, want in (("all_gather", shard[my], shard),
-                          ("all_to_all", chunks[my], chunks[:, my])):
+    for name, x, want, atol in (("all_gather", shard[my], shard, 0.0),
+                                ("all_to_all", chunks[my], chunks[:, my], 0.0),
+                                ("reduce_scatter", chunks[my], total[my], 1e-4),
+                                ("all_reduce", chunks[my], total, 1e-4)):
         xs = torch.from_numpy(np.ascontiguousarray(x)).to(dev)
         size = be.message_bytes(name, xs, ranks)
         got = getattr(be, name)(xs, ranks)
-        backend[name] = (be.choose(name, size)[0], size, _equal(got, want))
+        ok = _equal(got, want) if atol == 0 else np.allclose(got.cpu().numpy(), want, atol=atol)
+        backend[name] = (be.choose(name, size)[0], size, bool(ok))
     if dev.type == "cuda":
         ag_ops.check_ranks(ranks)
         aa_ops.check_ranks(ranks)
+        rs_ops.check_ranks(ranks)
+    after = (ag_ops.launches_rank, aa_ops.launches_rank, rs_ops.launches_rank)
     return {"kernels": kernels, "backend": backend,
-            "launches": (ag_ops.launches_rank - before[0], aa_ops.launches_rank - before[1])}
+            "launches": tuple(a - b for a, b in zip(after, before))}
 
 
 def main_procs(args) -> None:
@@ -146,11 +155,12 @@ def main_procs(args) -> None:
             print(f"  rank {r} {name:36s} {'OK' if ok else 'MISMATCH'}")
             bad += [f"rank {r} {name}"] * (not ok)
         for name, (variant, size, ok) in out["backend"].items():
-            print(f"  rank {r} CommBackend('latte').{name:11s} {size:>10d} B -> "
+            print(f"  rank {r} CommBackend('latte').{name:14s} {size:>10d} B -> "
                   f"{variant:16s} {'OK' if ok else 'MISMATCH'}")
             bad += [f"rank {r} {name}"] * (not ok)
     launched = [out["launches"] for out in outs]
-    print(f"  per-rank kernel launches (ring_all_gather, all_to_all) by rank: {launched}")
+    print(f"  per-rank kernel launches (ring_all_gather, all_to_all, ring_reduce_scatter) "
+          f"by rank: {launched}")
     if bad:
         raise SystemExit(f"mismatch: {bad}")
     print("all collectives validated against their oracles")

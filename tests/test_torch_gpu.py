@@ -24,6 +24,7 @@ from repro_torch.kernels.ring_all_gather import ops as ag_ops  # noqa: E402
 from repro_torch.kernels.ring_all_gather.ref import all_gather_ref  # noqa: E402
 from repro_torch.kernels.ring_all_to_all import ops as aa_ops  # noqa: E402
 from repro_torch.kernels.ring_all_to_all.ref import all_to_all_ref  # noqa: E402
+from repro_torch.kernels.ring_reduce_scatter import ops as rs_ops  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch.train import with_encoder_feats  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
@@ -387,7 +388,8 @@ def _no_fallback(monkeypatch_like):
     def refuse(*a, **k):
         raise AssertionError("a per-rank call on the card left the per-rank kernel")
     for mod, names in ((ag_ops, ("all_gather_ref", "all_gather_gloo", "ring_all_gather")),
-                       (aa_ops, ("all_to_all_ref", "all_to_all_gloo", "all_to_all"))):
+                       (aa_ops, ("all_to_all_ref", "all_to_all_gloo", "all_to_all")),
+                       (rs_ops, ("reduce_scatter_gloo",))):
         for name in names:
             monkeypatch_like(mod, name, refuse)
 
@@ -473,6 +475,139 @@ def test_procs_lost_flag_raises_on_its_rank(cuda):
     from repro_torch.core.procgroup import spawn
     res = spawn(procs_lost_flag, 2, device="cuda", timeout_s=300)
     assert "rank 0 gave up waiting" in res[0]["first"], res[0]
+    assert "rank(s) [0]" in res[1]["first"], res[1]
+    assert res[0]["again"] and res[1]["again"]
+
+
+def _moe_case(dtype):
+    """Reduced olmoe (d_model 128, 16 experts, top-4, d_ff 64): params and
+    32 tokens for each of up to 4 ranks, from a seed."""
+    from repro_torch.models.moe import init_moe
+    base = get_config("olmoe-1b-7b")
+    cfg = dataclasses.replace(base, d_model=128, compute_dtype=str(dtype)[6:],
+                              moe=dataclasses.replace(base.moe, n_experts=16, top_k=4,
+                                                      d_ff_expert=64))
+    p = {k: v.to(dtype) for k, v in init_moe(cfg, torch.Generator().manual_seed(0)).items()}
+    x = torch.from_numpy(np.random.default_rng(0).normal(size=(4, 32, 128)).astype(np.float32))
+    return cfg, p, x.to(dtype)
+
+
+def procs_reductions_and_moe(ranks, seed):
+    """One process: the ring reduce-scatter and all-reduce and both one-shots
+    per rank in f32 and bf16 (every other path refusing), 24 reduce-scatters
+    back to back with different data in two shapes, and the latte MoE layer
+    per rank in f32 (TF32 off) and bf16; then the emulated renderings on the
+    same inputs."""
+    from repro_torch.core import collectives as coll
+    from repro_torch.core.latte_moe import make_latte_moe
+    saved = {}
+
+    def patch(mod, name, fn):
+        saved[(mod, name)] = getattr(mod, name)
+        setattr(mod, name, fn)
+    _no_fallback(patch)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n, my, dev = ranks.n, ranks.rank, ranks.device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    fns = {"ring_reduce_scatter": coll.ring_reduce_scatter,
+           "ring_all_reduce": coll.ring_all_reduce,
+           "reference_reduce_scatter": coll.reference_reduce_scatter,
+           "reference_all_reduce": coll.reference_all_reduce}
+    got, inputs = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        # 16-byte words, and a chunk of 7 x 3 elements (4- and 2-byte words)
+        for shape in ((5, 96), (7, 3)):
+            xc = torch.randn((n, n, *shape), generator=g, device=dev).to(dtype)
+            inputs[(dtype, shape)] = xc
+            for name, fn in fns.items():
+                got[(name, dtype, shape)] = fn(xc[my], ranks)
+    launched = rs_ops.launches_rank
+    b2b_in = [torch.randn((n, n, 3 + 37 * (i % 2), 64), generator=g, device=dev)
+              for i in range(24)]
+    b2b = [coll.ring_reduce_scatter(x[my], ranks) for x in b2b_in]
+    moe = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        cfg, p, x = _moe_case(dtype)
+        p, x = {k: v.to(dev) for k, v in p.items()}, x[:n].to(dev)
+        before = aa_ops.launches_rank
+        out, aux = make_latte_moe(cfg, ranks)(p, x[my:my + 1])
+        moe[dtype] = (out[0], aux, aa_ops.launches_rank - before, cfg, p, x)
+    rs_ops.check_ranks(ranks)
+    ag_ops.check_ranks(ranks)
+    aa_ops.check_ranks(ranks)
+    for (mod, name), fn in saved.items():
+        setattr(mod, name, fn)
+    emulated = coll.make_ranks(n, dev)
+    bad, err = [], {}
+    for (name, dtype, shape), out in got.items():
+        xc = inputs[(dtype, shape)]
+        want = fns[name](xc, emulated)[my]
+        if name.startswith("ring"):
+            if not torch.equal(out, want):
+                bad.append((name, str(dtype), shape))
+        else:       # the same sums added in another order: relative to the largest
+            err[(name, str(dtype), shape)] = ((out.float() - want.float()).abs().max()
+                                              / want.float().abs().max()).item()
+    for i, (x, out) in enumerate(zip(b2b_in, b2b)):
+        if not torch.equal(out, coll.ring_reduce_scatter(x, emulated)[my]):
+            bad.append(("back to back", i))
+    for dtype, (out, aux, a2a, cfg, p, x) in moe.items():
+        want, want_aux = make_latte_moe(cfg, emulated)(p, x)
+        err[("moe", str(dtype))] = ((out.float() - want[my].float()).abs().max().item(),
+                                    torch.equal(out, want[my]), torch.equal(aux, want_aux), a2a)
+    return {"bad": bad, "err": err, "launched": launched,
+            "after": rs_ops.launches_rank, "moe_a2a": [moe[d][2] for d in moe]}
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_procs_reductions_and_moe_bit_equal_to_emulated(cuda, n):
+    """n processes on the card, one rank each: the rings bit-equal to the
+    emulated renderings (also 24 calls back to back with different data),
+    the one-shots (B4 ``per_round`` / B3 ``pcpy`` per rank, then a sum) within
+    an ulp-scale tolerance of the emulated sums, and the latte MoE layer per
+    rank (two B4 launches a forward) bit-equal to the emulated layer.  The
+    one-shots' tolerance, relative to the largest sum: 1e-6 in f32, one bf16
+    ulp (2^-7) in bf16, since the sums add in another order."""
+    from repro_torch.core.procgroup import spawn
+    res = spawn(procs_reductions_and_moe, n, device="cuda", args=(n,), timeout_s=300)
+    for r, out in enumerate(res):
+        assert out["bad"] == [], (r, out["bad"])
+        # one launch per ring reduce-scatter or all-reduce: 2 x 2 shapes x 2 dtypes
+        assert out["launched"] == 8 and out["after"] == 8 + 24, r
+        assert out["moe_a2a"] == [2, 2], r
+        for key, e in out["err"].items():
+            if key[0] == "moe":
+                assert e[1] and e[2], (r, key, e)
+            else:
+                assert e <= (1e-6 if key[1] == "torch.float32" else 2 ** -7), (r, key, e)
+
+
+def procs_rs_lost_flag(ranks):
+    """As procs_lost_flag, for the ring reduce-scatter: rank 1 skips a call,
+    so rank 0's barrier wait runs out; the collective check raises on both;
+    the next call is right on both (fresh buffers)."""
+    from repro_torch.core import collectives as coll
+    n = ranks.n
+    xc = torch.arange(n * n * 4 * 8, dtype=torch.float32, device=ranks.device)
+    xc = xc.reshape(n, n, 4, 8)
+    coll.ring_reduce_scatter(xc[ranks.rank], ranks)
+    rs_ops.check_ranks(ranks)
+    if ranks.rank != 1:
+        coll.ring_reduce_scatter(xc[ranks.rank], ranks)
+    try:
+        rs_ops.check_ranks(ranks)
+        first = "no error"
+    except RuntimeError as e:
+        first = str(e)
+    again = coll.ring_reduce_scatter(xc[ranks.rank], ranks)
+    rs_ops.check_ranks(ranks)
+    return {"first": first, "again": torch.equal(again, xc[:, ranks.rank].sum(0))}
+
+
+def test_procs_rs_lost_flag_raises_on_its_rank(cuda):
+    from repro_torch.core.procgroup import spawn
+    res = spawn(procs_rs_lost_flag, 2, device="cuda", timeout_s=300)
+    assert "ring_reduce_scatter: rank 0 gave up waiting for its barrier" in res[0]["first"], res
     assert "rank(s) [0]" in res[1]["first"], res[1]
     assert res[0]["again"] and res[1]["again"]
 

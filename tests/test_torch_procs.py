@@ -1,16 +1,20 @@
-"""The collectives with one rank per process, on the CPU over gloo.
+"""The collectives and the latte MoE layer with one rank per process, on the
+CPU over gloo.
 
 ``core.procgroup.spawn`` starts one gloo group per world size (8, the
 reference's test mesh, and 6, for the all-to-all's rotation pairing); each
 process runs every B3 / B4 variant per rank (``ops.ring_all_gather_rank``,
 ``ops.all_to_all_rank``: on the CPU their ring and pairing schedules step
-by step over gloo ``send``/``recv``) and the ``core.collectives`` functions
-with a ``ProcessRanks``, on inputs made with numpy from a seed, in f32 and
-bf16.  Each case below reads its rank's results from that one run and
-holds them bit-equal to the numpy oracle, to the emulated ``RankGroup``
-rendering on the same inputs, and to the reference's ``shard_map``
-functions (one JAX subprocess with 8 host devices, no Pallas interpret).
-The card's cases are in ``tests/test_torch_gpu.py``.
+by step over gloo ``send``/``recv``), the ring reduce-scatter per rank,
+the ``core.collectives`` functions and ``CommBackend`` with a
+``ProcessRanks``, on inputs made with numpy from a seed, in f32 and bf16,
+and (8 ranks) the latte MoE layer per rank.  Each case below reads its
+rank's results from that one run and holds them to the numpy oracle (data
+movement bit-equal, sums within a stated tolerance), to the emulated
+``RankGroup`` rendering on the same inputs (bit-equal for every ring and
+for the MoE layer), and to the reference's ``shard_map`` functions and
+``make_latte_moe`` (one JAX subprocess with 8 host devices, no Pallas
+interpret).  The card's cases are in ``tests/test_torch_gpu.py``.
 """
 import os
 import subprocess
@@ -23,25 +27,50 @@ torch = pytest.importorskip("torch")
 
 from conftest import REPO, run_subprocess  # noqa: E402
 
+from test_torch_latte_moe import CAPACITY, TOL, _cfg  # noqa: E402
+
+from repro_torch.bridge import moe_params_from_numpy  # noqa: E402
 from repro_torch.core import collectives as coll  # noqa: E402
+from repro_torch.core import latte_moe  # noqa: E402
 from repro_torch.core import procgroup  # noqa: E402
 from repro_torch.core.backend import CommBackend  # noqa: E402
 from repro_torch.kernels.ring_all_gather import ops as ag_ops  # noqa: E402
 from repro_torch.kernels.ring_all_to_all import ops as aa_ops  # noqa: E402
+from repro_torch.kernels.ring_reduce_scatter import ops as rs_ops  # noqa: E402
 
 SIZES = (8, 6)
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 TIMEOUT_S = 240
+MOE_RANKS = 8                    # the latte MoE's ranks (8 experts: 6 do not divide them)
 
 
 def inputs(n: int) -> dict:
     """Rank j's shard is ag[j] / coll_ag[j]; rank j's chunk for rank i is
-    aa[j, i] / coll_aa[j, i]."""
+    aa[j, i] / coll_aa[j, i] (also the reductions' addends).  With 8 ranks,
+    the latte MoE's params (scaled as the reference's ``init_moe``, at
+    ``test_torch_latte_moe.py``'s widths) and 16 tokens a rank."""
     rng = np.random.default_rng(n)
-    return {"ag": rng.normal(size=(n, 3, 40)).astype(np.float32),
+    data = {"ag": rng.normal(size=(n, 3, 40)).astype(np.float32),
             "aa": rng.normal(size=(n, n, 2, 24)).astype(np.float32),
             "coll_ag": rng.normal(size=(n, 4, 32)).astype(np.float32),
             "coll_aa": rng.normal(size=(n, n, 2, 16)).astype(np.float32)}
+    if n == MOE_RANKS:
+        cfg = _cfg("drop")
+        D, E, F = cfg.d_model, cfg.moe.n_experts, cfg.moe.d_ff_expert
+        for k, shape, scale in (("router", (D, E), D), ("wg", (E, D, F), D),
+                                ("wu", (E, D, F), D), ("wd", (E, F, D), F)):
+            data[f"p_{k}"] = (rng.normal(size=shape) / np.sqrt(scale)).astype(np.float32)
+        data["moe_x"] = rng.normal(size=(n, 16, D)).astype(np.float32)
+    return data
+
+
+def moe_params(data: dict, tag: str) -> dict:
+    tree = {k[2:]: v for k, v in data.items() if k.startswith("p_")}
+    return moe_params_from_numpy(_cfg(tag), tree, device="cpu")
+
+
+REDUCTIONS = ("ring_reduce_scatter", "ring_all_reduce", "reference_reduce_scatter",
+              "reference_all_reduce")
 
 
 def _f32(t: torch.Tensor) -> np.ndarray:
@@ -69,13 +98,24 @@ def rank_work(ranks, data: dict) -> dict:
         be = CommBackend("latte", axis_devices=ranks.n, allow_stale_tables=True)
         out[f"backend all_gather {d}"] = _f32(be.all_gather(t["coll_ag"][my], ranks))
         out[f"backend all_to_all {d}"] = _f32(be.all_to_all(t["coll_aa"][my].contiguous(), ranks))
-    for fn in (be.reduce_scatter, be.all_reduce, coll.ring_reduce_scatter):
-        try:
-            fn(torch.from_numpy(data["coll_aa"][my]), ranks)
-            out[f"not ported {fn.__name__}"] = "ran"
-        except NotImplementedError as e:
-            out[f"not ported {fn.__name__}"] = str(e)
-    out["launches"] = (ag_ops.launches_rank, aa_ops.launches_rank)
+        addends = t["coll_aa"][my].contiguous()
+        for name in REDUCTIONS:
+            out[f"{name} {d}"] = _f32(getattr(coll, name)(addends, ranks))
+        out[f"backend reduce_scatter {d}"] = _f32(be.reduce_scatter(addends, ranks))
+        out[f"backend all_reduce {d}"] = _f32(be.all_reduce(addends, ranks))
+        out[f"rs kernel {d}"] = _f32(rs_ops.reduce_scatter_rank(addends, ranks))
+    if ranks.n == MOE_RANKS:
+        for tag in CAPACITY:
+            o, aux = latte_moe.make_latte_moe(_cfg(tag), ranks)(moe_params(data, tag),
+                                                                torch.from_numpy(
+                                                                    data["moe_x"][my:my + 1]))
+            out[f"moe {tag}"], out[f"moe aux {tag}"] = o.numpy(), aux.numpy()
+    try:
+        latte_moe.make_latte_moe(_cfg("drop"), ranks)
+        out["moe ranks"] = "accepted"
+    except AssertionError:
+        out["moe ranks"] = "rejected"
+    out["launches"] = (ag_ops.launches_rank, aa_ops.launches_rank, rs_ops.launches_rank)
     torch.cuda.is_available = lambda: False       # this process has no card from here
     try:
         procgroup.process_ranks()
@@ -98,25 +138,41 @@ def runs(tmp_path_factory):
 
 
 JAX_SIDE = r"""
+import dataclasses
 import numpy as np
 import jax, jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
 from repro.compat import shard_map
+from repro.configs import get_config
 from repro.core import collectives as coll
+from repro.core.latte_moe import make_latte_moe
 
 res = {}
 for n in (8, 6):
     data = np.load(IN.format(n))
     mesh = Mesh(np.array(jax.devices()[:n]), ("x",))
     for d, jd in (("float32", jnp.float32), ("bfloat16", jnp.bfloat16)):
-        for name, key in (("ring_all_gather", "coll_ag"), ("bidir_ring_all_gather", "coll_ag"),
-                          ("pairwise_all_to_all", "coll_aa")):
+        names = [("ring_all_gather", "coll_ag"), ("bidir_ring_all_gather", "coll_ag"),
+                 ("pairwise_all_to_all", "coll_aa")]
+        if d == "float32":
+            names += [(name, "coll_aa") for name in REDUCTIONS]
+        for name, key in names:
             x = jnp.asarray(data[key]).astype(jd)
             spec = P("x", *[None] * (x.ndim - 1))
             fn = getattr(coll, name)
+            out_ndim = 2 if name.endswith("reduce_scatter") else 3   # one device's result
             f = shard_map(lambda a, fn=fn: fn(a[0], "x")[None], mesh=mesh, in_specs=spec,
-                          out_specs=P("x", None, None, None), check_vma=False)
+                          out_specs=P("x", *[None] * out_ndim), check_vma=False)
             res[f"{name} {d} {n}"] = np.asarray(jax.jit(f)(x).astype(jnp.float32))
+    if n == 8:
+        # the latte MoE at test_torch_latte_moe.py's config, on these params
+        base = get_config("mixtral-8x7b").reduced()
+        p = {k: jnp.asarray(data["p_" + k]) for k in ("router", "wg", "wu", "wd")}
+        for tag, cf in CAPACITY.items():
+            cfg = dataclasses.replace(base, d_model=64, moe=dataclasses.replace(
+                base.moe, n_experts=8, top_k=2, d_ff_expert=32, capacity_factor=cf))
+            out, aux = jax.jit(make_latte_moe(cfg, mesh, "x"))(p, jnp.asarray(data["moe_x"]))
+            res[f"moe {tag}"], res[f"moe aux {tag}"] = np.asarray(out), np.asarray(aux)
 np.savez(OUT, **res)
 print("JAX_SIDE_OK")
 """
@@ -124,13 +180,14 @@ print("JAX_SIDE_OK")
 
 @pytest.fixture(scope="module")
 def jax_ref(runs, tmp_path_factory):
-    """The reference's shard_map collectives on the same inputs: row i is
-    device i's result."""
+    """The reference's shard_map collectives and make_latte_moe on the same
+    inputs: row i is device i's result."""
     d = tmp_path_factory.mktemp("jax_procs")
     for n, (data, _) in runs.items():
         np.savez(d / f"in{n}.npz", **data)
     path = d / "ref.npz"
-    code = f"IN = {str(d / 'in{}.npz')!r}\nOUT = {str(path)!r}\n" + JAX_SIDE
+    code = (f"IN = {str(d / 'in{}.npz')!r}\nOUT = {str(path)!r}\nCAPACITY = {CAPACITY!r}\n"
+            f"REDUCTIONS = {REDUCTIONS!r}\n" + JAX_SIDE)
     assert "JAX_SIDE_OK" in run_subprocess(code, n_devices=8)
     return dict(np.load(path))
 
@@ -206,19 +263,100 @@ def test_backend_and_one_shot_over_processes(runs, n, dtype, name):
         np.testing.assert_array_equal(res[r][f"reference_{name} {dtype}"], want)
 
 
+def _reduction_oracle(data: dict, fn: str, dtype: str, n: int, rank: int):
+    """numpy's sum over ranks of the (dtype-rounded) addends for what the
+    ``core.collectives`` function ``fn`` returns on ``rank``, and its
+    tolerance: f32 atol 1e-4; bf16,
+    each of the n - 1 adds rounds to one bf16 ulp (2^-7 relative) of a
+    partial no larger than sum_e |x_e|, so 2^-7 (n - 1) sum_e |x_e|."""
+    x = _rounded(data["coll_aa"], dtype).astype(np.float64)
+    total, scale = x.sum(0), np.abs(x).sum(0)
+    if fn.endswith("reduce_scatter"):
+        total, scale = total[rank], scale[rank]
+    atol = 1e-4 if dtype == "float32" else 2.0 ** -7 * (n - 1) * scale
+    return total, atol
+
+
+def _within(got: np.ndarray, want: np.ndarray, atol, what: str) -> None:
+    excess = np.abs(got - want) - atol
+    assert (excess <= 0).all(), f"{what}: {int((excess > 0).sum())} elements out, by up to " \
+        f"{excess.max()} (largest difference {np.abs(got - want).max()})"
+
+
+@pytest.mark.parametrize("n", SIZES)
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("name", [*REDUCTIONS, "backend reduce_scatter",
+                                  "backend all_reduce", "rs kernel"])
+def test_reductions_over_processes(runs, jax_ref, n, dtype, name):
+    """Reduce-scatter and all-reduce with a ``ProcessRanks``, as the
+    reference's are called inside shard_map (this rank's addends [n, *chunk]
+    -> [*chunk] or [n, *chunk]): within the stated tolerance of numpy; the
+    rings (the per-rank kernel's gloo schedule, the ring all-reduce, and
+    ``CommBackend('latte')``, whose tables pick a ring) bit-equal to the
+    emulated ``RankGroup`` rendering's row; in f32 within atol 1e-4 of the
+    reference's shard_map function (C-ref1: the reference's own test of
+    these checks nothing, so numpy is the oracle that counts)."""
+    data, res = runs[n]
+    xs = torch.from_numpy(data["coll_aa"]).to(DTYPES[dtype])
+    ranks = coll.make_ranks(n, "cpu")
+    fn = {"backend reduce_scatter": "ring_reduce_scatter", "backend all_reduce":
+          "ring_all_reduce", "rs kernel": "ring_reduce_scatter"}.get(name, name)
+    emulated = getattr(coll, fn)(xs, ranks)
+    if name.startswith("backend"):
+        be = CommBackend("latte", axis_devices=n, allow_stale_tables=True)
+        assert be.choose(name[8:], be.message_bytes(name[8:], xs, ranks))[0].endswith("ring_rs")
+        emulated = getattr(be, name[8:])(xs, ranks)
+    for r in range(n):
+        got = res[r][f"{name} {dtype}"]
+        want, atol = _reduction_oracle(data, fn, dtype, n, r)
+        assert got.shape == want.shape, (r, got.shape)
+        _within(got, want, atol, f"rank {r} against numpy")
+        if "reference" not in name:
+            np.testing.assert_array_equal(got, _f32(emulated[r]), err_msg=f"rank {r}")
+        else:
+            _within(got, _f32(emulated[r]), atol, f"rank {r} against the emulated sum")
+        if dtype == "float32" and name in REDUCTIONS:
+            np.testing.assert_allclose(got, jax_ref[f"{name} {dtype} {n}"][r], rtol=0,
+                                       atol=1e-4, err_msg=f"rank {r}")
+
+
+@pytest.mark.parametrize("tag", sorted(CAPACITY))
+def test_latte_moe_over_processes(runs, jax_ref, tag):
+    """The latte MoE layer with one rank per process (8 gloo processes, each
+    its 16 tokens and the full params): every rank's output and the pmean-ed
+    aux bit-equal to the emulated layer on the same tokens and weights, and
+    within ``test_torch_latte_moe.TOL`` of the reference's ``make_latte_moe``
+    on 8 host devices."""
+    data, res = runs[MOE_RANKS]
+    x = torch.from_numpy(data["moe_x"])
+    want, want_aux = latte_moe.make_latte_moe(_cfg(tag), coll.make_ranks(MOE_RANKS, "cpu"))(
+        moe_params(data, tag), x)
+    for r, out in enumerate(res):
+        np.testing.assert_array_equal(out[f"moe {tag}"][0], want[r].numpy(), err_msg=f"rank {r}")
+        np.testing.assert_array_equal(out[f"moe aux {tag}"], want_aux.numpy())
+        np.testing.assert_allclose(out[f"moe {tag}"][0], jax_ref[f"moe {tag}"][r], atol=TOL,
+                                   rtol=TOL, err_msg=f"rank {r}")
+        np.testing.assert_allclose(out[f"moe aux {tag}"], jax_ref[f"moe aux {tag}"], atol=TOL,
+                                   rtol=TOL)
+
+
 @pytest.mark.parametrize("n", SIZES)
 def test_process_ranks_and_what_is_not_ported(runs, n):
     """Rank r of n on the CPU when asked; the card otherwise, which raises
-    with no card; reductions over processes raise, naming ROADMAP; the CPU
-    path launched no kernel."""
+    with no card; the reductions over processes, which raised before they
+    were ported, now run on every rank; the latte MoE layer takes ranks that
+    divide its 8 experts (8) and rejects those that do not (6), as the
+    reference asserts; the CPU path launched no kernel."""
     _, res = runs[n]
     for r, out in enumerate(res):
         assert (out["rank"], out["n"], out["device"]) == (r, n, "cpu")
         assert out["cpu device"] == "cpu"
         assert "CUDA is not available" in out["default device"]
-        assert out["launches"] == (0, 0)
-        for fn in ("reduce_scatter", "all_reduce", "ring_reduce_scatter"):
-            assert "ROADMAP 10c" in out[f"not ported {fn}"], fn
+        assert out["launches"] == (0, 0, 0)
+        for d in DTYPES:
+            for name in (*REDUCTIONS, "backend reduce_scatter", "backend all_reduce"):
+                assert np.isfinite(out[f"{name} {d}"]).all(), name
+        assert out["moe ranks"] == ("accepted" if n == MOE_RANKS else "rejected")
 
 
 def test_spawn_needs_a_card_unless_cpu(monkeypatch):
@@ -269,4 +407,6 @@ def test_launch_collectives_procs_validates_on_cpu():
     assert r.returncode == 0, r.stdout + r.stderr
     assert "all collectives validated against their oracles" in r.stdout
     assert "MISMATCH" not in r.stdout
-    assert r.stdout.count(" OK") == 4 * (2 * (4 + 2) + 2)
+    assert r.stdout.count(" OK") == 4 * (2 * (4 + 2) + 4)
+    for name in ("reduce_scatter", "all_reduce"):
+        assert r.stdout.count(f"CommBackend('latte').{name} ") == 4, name
