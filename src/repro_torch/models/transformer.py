@@ -57,6 +57,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.compat import torch_dtype
 from repro_torch.configs.base import ArchConfig
+from repro_torch.spans import FFN, span
 from . import attention as attn
 from . import layers as L
 from . import mamba2
@@ -101,7 +102,9 @@ def apply_tf_block_decode(cfg, p, x, cache, pos, *, rope_fn, window, ac=identity
     out, cache = attn.attention_decode(cfg, p["attn"], h, cache, pos, rope_fn=rope_fn,
                                        window=window)
     x = x + out
-    y, _ = _ffn(cfg, p, L.apply_norm(cfg, p["ln2"], x), ac)
+    h = L.apply_norm(cfg, p["ln2"], x)
+    with span(FFN):
+        y, _ = _ffn(cfg, p, h, ac)
     return x + y, cache
 
 

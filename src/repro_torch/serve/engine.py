@@ -34,6 +34,7 @@ from repro_torch.compat import resolve_device
 from repro_torch.core.backend import CommBackend
 from repro_torch.models import attention as attn_mod
 from repro_torch.models.transformer import Model
+from repro_torch.spans import DECODE, DECODE_STEP, FIRST_TOKEN, SAVE, SYNC, span
 from .host_store import HostKVStore
 from .kvcache import BLOCK_TOKENS, blocks_to_kv, kv_to_blocks
 
@@ -75,7 +76,8 @@ class ServeEngine:
     # ----------------------------------------------------------- helpers ----
     def _clock(self) -> float:
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            with span(SYNC):
+                torch.cuda.synchronize(self.device)
         return time.perf_counter()
 
     def _build_cache(self, k: torch.Tensor, v: torch.Tensor, capacity: int) -> list[dict]:
@@ -100,40 +102,43 @@ class ServeEngine:
         """TTFT path for a batch sharing prompt length.  Returns
         (first_tokens [B] on the device, cache, stats).  ``fetch_backend=None``
         follows the CommBackend's ``kv_fetch_plan``."""
-        prompts = torch.as_tensor(prompts, dtype=torch.long, device=self.device)
-        B, S = prompts.shape
-        capacity = capacity or S + 64
-        stats = []
-        t0 = self._clock()
-        if all(k in self.store for k in keys):
-            if fetch_backend is None:
-                fetch_backend = self._planned_backend(keys)
-            ks, vs, modeled_total, n_tr = [], [], 0.0, 0
-            for key in keys:
-                res = self.store.fetch(key, fetch_backend)
-                kk, vv = blocks_to_kv(res.k_blocks, res.v_blocks, self.store.tokens_for(key))
-                ks.append(kk)
-                vs.append(vv)
-                modeled_total += res.modeled_seconds
-                n_tr += res.n_transfers
-            cache = self._build_cache(torch.cat(ks, dim=1), torch.cat(vs, dim=1), capacity)
-            logits, cache = self.model.decode_step(
-                self.params, {"tokens": prompts[:, -1:], "pos": S - 1}, cache)
-            first = self._greedy(logits)
-            wall = self._clock() - t0
-            stats = [RequestStats(key, True, wall / B, modeled_total / B, n_tr, S)
-                     for key in keys]
-        else:
-            logits, _, (k, v) = self.model.forward(self.params, {"tokens": prompts},
-                                                   want_cache=True)
-            first = self._greedy(logits)
-            wall = self._clock() - t0
-            for b, key in enumerate(keys):
-                kb, vb = kv_to_blocks(k[:, b:b + 1], v[:, b:b + 1], self.block_tokens)
-                self.store.save(key, kb, vb, S)
-                stats.append(RequestStats(key, False, wall / B, 0.0, 0, S))
-            cache = self._build_cache(k, v, capacity)
-        return first, cache, stats
+        with span(FIRST_TOKEN):
+            prompts = torch.as_tensor(prompts, dtype=torch.long, device=self.device)
+            B, S = prompts.shape
+            capacity = capacity or S + 64
+            stats = []
+            t0 = self._clock()
+            if all(k in self.store for k in keys):
+                if fetch_backend is None:
+                    fetch_backend = self._planned_backend(keys)
+                ks, vs, modeled_total, n_tr = [], [], 0.0, 0
+                for key in keys:
+                    res = self.store.fetch(key, fetch_backend)
+                    kk, vv = blocks_to_kv(res.k_blocks, res.v_blocks, self.store.tokens_for(key))
+                    ks.append(kk)
+                    vs.append(vv)
+                    modeled_total += res.modeled_seconds
+                    n_tr += res.n_transfers
+                cache = self._build_cache(torch.cat(ks, dim=1), torch.cat(vs, dim=1), capacity)
+                with span(DECODE_STEP):
+                    logits, cache = self.model.decode_step(
+                        self.params, {"tokens": prompts[:, -1:], "pos": S - 1}, cache)
+                first = self._greedy(logits)
+                wall = self._clock() - t0
+                stats = [RequestStats(key, True, wall / B, modeled_total / B, n_tr, S)
+                         for key in keys]
+            else:
+                logits, _, (k, v) = self.model.forward(self.params, {"tokens": prompts},
+                                                       want_cache=True)
+                first = self._greedy(logits)
+                wall = self._clock() - t0
+                with span(SAVE):
+                    for b, key in enumerate(keys):
+                        kb, vb = kv_to_blocks(k[:, b:b + 1], v[:, b:b + 1], self.block_tokens)
+                        self.store.save(key, kb, vb, S)
+                        stats.append(RequestStats(key, False, wall / B, 0.0, 0, S))
+                cache = self._build_cache(k, v, capacity)
+            return first, cache, stats
 
     def generate(self, prompts, keys: Sequence[str], n_new: int, *,
                  fetch_backend: str | None = None) -> GenerationResult:
@@ -143,11 +148,13 @@ class ServeEngine:
                                                capacity=capacity)
         toks = [first]
         t0 = self._clock()
-        for i in range(n_new - 1):
-            logits, cache = self.model.decode_step(
-                self.params, {"tokens": toks[-1][:, None], "pos": S + i}, cache)
-            toks.append(self._greedy(logits))
-        dt = self._clock() - t0
+        with span(DECODE):
+            for i in range(n_new - 1):
+                with span(DECODE_STEP):
+                    logits, cache = self.model.decode_step(
+                        self.params, {"tokens": toks[-1][:, None], "pos": S + i}, cache)
+                toks.append(self._greedy(logits))
+            dt = self._clock() - t0
         tokens = torch.stack(toks, dim=1).cpu().numpy()
         return GenerationResult(tokens, stats, dt, B * (n_new - 1) / max(dt, 1e-9))
 

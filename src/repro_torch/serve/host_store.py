@@ -39,6 +39,7 @@ from repro_torch.compat import resolve_device
 from repro_torch.core.dma import kv_fetch_schedule, mi300x_platform, simulate
 from repro_torch.core.dma.rccl_model import kernel_copy_latency
 from repro_torch.kernels.paged_kv_gather.ops import gather_blocks
+from repro_torch.spans import STAGE, span
 
 BACKENDS = ("pcpy", "b2b", "opt_b2b", "kernel")
 
@@ -125,7 +126,9 @@ class HostKVStore:
         elif backend in ("b2b", "opt_b2b"):
             ksz = kb[0].numel()
             staged = self._host((n_blocks, ksz + vb[0].numel()), kb.dtype)
-            torch.cat([kb.reshape(n_blocks, -1), vb.reshape(n_blocks, -1)], dim=1, out=staged)
+            with span(STAGE):
+                torch.cat([kb.reshape(n_blocks, -1), vb.reshape(n_blocks, -1)], dim=1,
+                          out=staged)
             moved = torch.empty(staged.shape, dtype=staged.dtype, device=dev)
             moved.copy_(staged, non_blocking=True)
             k_out, v_out = moved[:, :ksz].reshape(kb.shape), moved[:, ksz:].reshape(vb.shape)
