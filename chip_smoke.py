@@ -17,6 +17,13 @@ Phases, in order; each raises on failure and nothing is caught:
    by CUDA events (median of 50 after warm-up) beside each kernel's bound.
    Tables padded past each length with -1, n_pool and 1000: B1 bit-equal
    to its plain version (zero blocks there), B2 within its tolerances.
+3b. The causal flash-attention prefill kernel (``csrc/prefill_attention.cu``)
+   at qwen2-vl-72b's served prefill (bf16, B 8, KV 8, G 8, S 2048, hd 128)
+   and olmoe-1b-7b's fill (B 8, KV 16, G 1, S 4080): against a float32
+   causal attention (atol/rtol 1e-2: the output's bf16 rounding) and the
+   port's dense path; device ms beside the tensor-core bound (the causal
+   FLOPs at 989 TFLOP/s) and the share of it reached, the dense path's ms
+   and ``scaled_dot_product_attention``'s (the library yardstick only).
 4. Serving qwen2-0.5b at full width (24 layers, bf16, random weights from a
    seed): batch 4, context 1024, 16 new tokens; one miss pass, then a hit
    through each fetch backend.  Fetched blocks must be bit-equal to the
@@ -201,7 +208,11 @@ SOURCES = {"paged_kv_gather": "src/repro_torch/kernels/csrc/paged_kv_gather.cu",
            "paged_decode_attention": "src/repro_torch/kernels/csrc/decode_attention.cu",
            "ring_all_gather": "src/repro_torch/kernels/csrc/ring_all_gather.cu",
            "all_to_all": "src/repro_torch/kernels/csrc/ring_all_to_all.cu",
-           "ring_reduce_scatter": "src/repro_torch/kernels/csrc/ring_reduce_scatter.cu"}
+           "ring_reduce_scatter": "src/repro_torch/kernels/csrc/ring_reduce_scatter.cu",
+           "prefill_flash_attention": "src/repro_torch/kernels/csrc/prefill_attention.cu"}
+# the prefill attention kernel's shapes (B, S, KV, G, hd): qwen2-vl-72b-8l's
+# fresh-2k prefill and olmoe-1b-7b's revisit-4k fill
+PREFILL_SHAPES = {"qwen2-vl-72b": (8, 2048, 8, 8, 128), "olmoe-1b-7b": (8, 4080, 16, 1, 128)}
 RANKS = 8                                    # emulated ranks of the collectives
 ROW = 1024                                   # elements per row of a rank's chunk
 GATHERED = {"64KiB": 64 << 10, "1MiB": 1 << 20, "16MiB": 16 << 20, "256MiB": 256 << 20}
@@ -525,6 +536,67 @@ def check_decode_attention(dev) -> dict:
     return result[torch.bfloat16]
 
 
+def _sdpa_causal(q, k, v):
+    """Library yardstick for the prefill kernel: one causal SDPA call."""
+    Bq, S, KV, G, hd = q.shape
+    out = torch.nn.functional.scaled_dot_product_attention(
+        q.permute(0, 2, 3, 1, 4).reshape(Bq, KV * G, S, hd), k.transpose(1, 2),
+        v.transpose(1, 2), is_causal=True, enable_gqa=True)
+    return out.reshape(Bq, KV, G, S, hd).permute(0, 3, 1, 2, 4)
+
+
+def check_prefill_attention(dev) -> dict:
+    from repro_torch.kernels.prefill_attention import ops
+    from repro_torch.models.attention import _attn_scores_block
+    result = {}
+    for arch, (Bq, S, KV, G, hd) in PREFILL_SHAPES.items():
+        g = torch.Generator(device=dev).manual_seed(3)
+        q = _randn(g, (Bq, S, KV, G, hd), torch.bfloat16, dev)
+        k = _randn(g, (Bq, S, KV, hd), torch.bfloat16, dev)
+        v = _randn(g, (Bq, S, KV, hd), torch.bfloat16, dev)
+        pos = torch.arange(S, dtype=torch.int32, device=dev)
+
+        def dense():
+            return _attn_scores_block(q, k, v, pos, pos, head_dim=hd, causal=True,
+                                      window=None, cap=None)
+        out = ops.prefill_attention(q, k, v)
+        torch.cuda.synchronize()
+        want = torch.empty((Bq, S, KV, G, hd), dtype=torch.float32, device=dev)
+        mask = torch.ones(S, S, dtype=torch.bool, device=dev).tril()
+        for b in range(Bq):                            # float32, a sequence at a time
+            sc = torch.einsum("qkgd,skd->kgqs", q[b].float(), k[b].float()) / hd ** 0.5
+            w = torch.softmax(sc.masked_fill(~mask, float("-inf")), dim=-1)
+            want[b] = torch.einsum("kgqs,skd->qkgd", w, v[b].float())
+            del sc, w
+        err = (out.float() - want).abs().max().item()
+        dense_err = (dense().float() - want).abs().max().item()
+        torch.testing.assert_close(out.float(), want, atol=1e-2, rtol=1e-2)
+        del want
+        flops = 4.0 * Bq * KV * G * hd * S * (S + 1) / 2
+        bound, by = bound_ms(4 * q.numel() * 2 // G, flops, torch.bfloat16)
+        before = ops.launches
+        kernel = device_ms(lambda: ops.prefill_attention(q, k, v), reps=20)
+        per_call = (ops.launches - before) / 25        # 5 warm-up + 20 timed calls
+        row = dict(kernel_ms=kernel, plain_ms=device_ms(dense, reps=5, warmup=1),
+                   library_ms=device_ms(lambda: _sdpa_causal(q, k, v), reps=20),
+                   call_ms=call_ms(lambda: ops.prefill_attention(q, k, v), reps=20),
+                   bound_ms=bound, bound_by=by, tflop=flops / 1e12,
+                   tensor_core_share=100.0 * bound / kernel,
+                   launches_per_call=per_call, max_abs_err=err,
+                   dense_max_abs_err=dense_err)
+        log(f"[kernel] prefill_flash_attention ({arch}) bf16 B={Bq} S={S} KV={KV} G={G} "
+            f"hd={hd} causal: {row['tflop']} TFLOP; device ms: kernel={kernel} "
+            f"plain(dense)={row['plain_ms']} library(sdpa)={row['library_ms']}; "
+            f"bound={bound} ms ({by}); {row['tensor_core_share']}% of it; "
+            f"{flops / kernel / 1e9} TFLOP/s; call incl. host={row['call_ms']} ms; "
+            f"launches a call {row['launches_per_call']}; max_abs_err vs float32 {err} "
+            f"(dense path {dense_err})")
+        result[arch] = row
+        del q, k, v, out
+        torch.cuda.empty_cache()
+    return result
+
+
 # ------------------------------------------------------------------ 4, 5 ----
 def _engine(cfg, dev, seed=0):
     from repro_torch.models import build_model
@@ -541,6 +613,7 @@ def phase_serving(dev, cfg, seed: int) -> dict:
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.kernels.decode_attention import ops as da_ops
     from repro_torch.kernels.paged_kv_gather import ops as gather_ops
+    from repro_torch.kernels.prefill_attention import ops as pa_ops
     from repro_torch.serve.host_store import BACKENDS
     arch = cfg.name
     t_phase = time.perf_counter()
@@ -559,6 +632,7 @@ def phase_serving(dev, cfg, seed: int) -> dict:
 
     gather_ops.launches = 0
     da_ops.launches = 0
+    pa_ops.launches = 0
     miss = eng.generate(prompts, keys, NEW)
     hits, delta = {}, {}
     for backend in BACKENDS:
@@ -566,7 +640,11 @@ def phase_serving(dev, cfg, seed: int) -> dict:
         hits[backend] = eng.generate(prompts, keys, NEW, fetch_backend=backend)
         delta[backend] = gather_ops.launches - before
     launches = {"paged_kv_gather": gather_ops.launches,
-                "paged_decode_attention": da_ops.launches}
+                "paged_decode_attention": da_ops.launches,
+                "prefill_flash_attention": pa_ops.launches}
+    if pa_ops.launches != cfg.n_layers:
+        raise AssertionError(f"{arch}: the miss pass launched prefill_flash_attention "
+                             f"{pa_ops.launches} times, want one a layer ({cfg.n_layers})")
 
     if miss.request_stats[0].cache_hit or not all(h.request_stats[0].cache_hit
                                                    for h in hits.values()):
@@ -1890,6 +1968,7 @@ def main() -> int:
     b1_moe = run("gather_moe", check_gather, dev, get_config(MOE_ARCH))
     b1_vlm = run("gather_vlm", check_gather, dev, vlm_cfg)
     b2 = run("decode_attention", check_decode_attention, dev)
+    prefill = run("prefill_attention", check_prefill_attention, dev)
     run("out_of_range_tables", check_out_of_range_tables, dev)
     launches = run("serve_" + ARCH, phase_serving, dev, get_config(ARCH), seed=0)
     run("exact_" + ARCH, phase_exactness, dev, ARCH, seed=1)
@@ -1956,7 +2035,10 @@ def main() -> int:
              "src/repro/kernels/ring_all_to_all/ring_all_to_all.py:87"),
             # no TPU kernel: the port's rendering of the reference's ppermute ring
             ("ring_reduce_scatter", procs_out["ring_reduce_scatter"],
-             "src/repro/core/collectives.py:97")):
+             "src/repro/core/collectives.py:97"),
+            # no TPU kernel: XLA's einsum and softmax in the reference's attention
+            ("prefill_flash_attention", prefill["qwen2-vl-72b"],
+             "src/repro/models/attention.py:104")):
         if name != "paged_decode_attention" and launches.get(name, 0) + procs.get(name, 0) == 0:
             raise AssertionError(f"the main path never launched {name}")
         entry = {"name": name, "route": "cuda", "source": SOURCES[name],
@@ -1970,6 +2052,9 @@ def main() -> int:
             entry["launches_by_path"] = {"collectives_path": path["launches"].get(name, 0),
                                          "twins": twins.get(name, 0), "procs": procs[name]}
             entry["launches"] += procs[name]
+        if name == "prefill_flash_attention":
+            entry["at_olmoe-1b-7b"] = prefill["olmoe-1b-7b"]
+            entry["tensor_core_share"] = row["tensor_core_share"]
         if name == "paged_kv_gather":
             entry["launches_by_path"] = {
                 ARCH: launches[name] - moe_launches[name] - vlm_launches[name],

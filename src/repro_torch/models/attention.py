@@ -12,9 +12,12 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.utils._python_dispatch import _get_current_dispatch_mode
 
+from repro_torch import spans
 from repro_torch.compat import torch_dtype
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels.prefill_attention import ops as prefill_ops
 from .layers import apply_rotary, normal, softcap
 
 # Sequences longer than this use the query-chunked path (bounds the
@@ -22,23 +25,52 @@ from .layers import apply_rotary, normal, softcap
 CHUNK_THRESHOLD = 2048
 Q_CHUNK = 512
 NEG_INF = -1e30
+_costing = 0                # depth of open dense_attention_for_costing blocks
 
 
 class dense_attention_for_costing:
-    """Context manager: disable query chunking, as the reference's costing
-    pass does, so the port's costing traces the same attention (one
-    [*, S, S] score block) and compares with the reference term by term."""
+    """Context manager: disable query chunking and the prefill kernel, as the
+    reference's costing pass does, so the port's costing traces the same
+    attention (one [*, S, S] score block) and compares with the reference
+    term by term."""
 
     def __enter__(self):
-        global CHUNK_THRESHOLD
+        global CHUNK_THRESHOLD, _costing
         self._old = CHUNK_THRESHOLD
         CHUNK_THRESHOLD = 1 << 62
+        _costing += 1
         return self
 
     def __exit__(self, *exc):
-        global CHUNK_THRESHOLD
+        global CHUNK_THRESHOLD, _costing
         CHUNK_THRESHOLD = self._old
+        _costing -= 1
         return False
+
+
+def prefill_kernel_applies(*, device_type: str, dtype: torch.dtype, plain: bool,
+                           needs_grad: bool, cross: bool, causal: bool, cap: float | None,
+                           window: int | None, head_dim: int, costing: bool) -> bool:
+    """Whether full-context attention runs the flash-attention prefill kernel
+    (``kernels/prefill_attention``) instead of the dense or query-chunked
+    path: plain CUDA tensors (no fake, meta or DTensor, no dispatch mode) of
+    bf16 or fp16, nothing to differentiate (the kernel is forward only),
+    causal self-attention without softcap or window, a head_dim the kernel
+    has, outside ``dense_attention_for_costing``."""
+    return (device_type == "cuda" and plain and dtype in prefill_ops.DTYPES
+            and not needs_grad and not cross and causal and cap is None
+            and window is None and head_dim in prefill_ops.HEAD_DIMS and not costing)
+
+
+def _prefill_kernel_applies(q, k, v, *, kv_x, causal, window, cap) -> bool:
+    """``prefill_kernel_applies`` on what the operands show."""
+    ops = (q, k, v)
+    return prefill_kernel_applies(
+        device_type=q.device.type, dtype=q.dtype,
+        plain=all(type(t) is torch.Tensor for t in ops) and _get_current_dispatch_mode() is None,
+        needs_grad=torch.is_grad_enabled() and any(t.requires_grad for t in ops),
+        cross=kv_x is not None, causal=causal, cap=cap, window=window,
+        head_dim=q.shape[-1], costing=_costing > 0)
 
 
 def init_attention(cfg: ArchConfig, gen: torch.Generator, *, cross: bool = False) -> dict:
@@ -115,9 +147,11 @@ def attention_ctx(cfg: ArchConfig, p: dict, x: torch.Tensor, *, rope, causal: bo
                   window: int | None = None, kv_x: torch.Tensor | None = None,
                   q_chunk: int = Q_CHUNK, return_kv: bool = False):
     """Full-context attention (train / prefill / encoder / cross).  With
-    ``kv_x`` (cross-attention) K and V come from it.  Sequences longer than
+    ``kv_x`` (cross-attention) K and V come from it.  Where
+    ``prefill_kernel_applies`` (causal inference on the card) the
+    flash-attention kernel computes it; otherwise sequences longer than
     ``CHUNK_THRESHOLD`` run in query chunks of ``q_chunk`` (a loop takes the
-    place of the reference's ``lax.scan``)."""
+    place of the reference's ``lax.scan``) and shorter ones in one block."""
     B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q, k, v = _project_qkv(cfg, p, x, kv_x)
@@ -129,7 +163,11 @@ def attention_ctx(cfg: ArchConfig, p: dict, x: torch.Tensor, *, rope, causal: bo
     k_pos = torch.arange(k.shape[1], dtype=torch.int32, device=x.device)
     kw = dict(head_dim=hd, causal=causal, window=window, cap=cfg.attn_softcap)
 
-    if S <= CHUNK_THRESHOLD or S % q_chunk != 0:
+    if _prefill_kernel_applies(q, k, v, kv_x=kv_x, causal=causal, window=window,
+                               cap=cfg.attn_softcap):
+        with spans.span(spans.PREFILL_ATTN):
+            out = prefill_ops.prefill_attention(q, k, v)
+    elif S <= CHUNK_THRESHOLD or S % q_chunk != 0:
         out = _attn_scores_block(q, k, v, q_pos, k_pos, **kw)
     else:
         out = query_chunks(q, k, v, q_pos, k_pos, q_chunk, **kw)

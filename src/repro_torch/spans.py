@@ -21,8 +21,9 @@ SAVE = "serve.save"                 # first_token's miss: the batch's contexts t
 DECODE = "serve.decode"             # generate: the decode loop through its closing clock
 DECODE_STEP = "model.decode_step"   # each engine call of Model.decode_step
 FFN = "model.ffn"                   # apply_tf_block_decode: the feed-forward (MoE or MLP)
+PREFILL_ATTN = "attn.prefill_kernel"  # attention_ctx: each call of the prefill attention kernel
 
-NAMES = (FIRST_TOKEN, STAGE, SYNC, SAVE, DECODE, DECODE_STEP, FFN)
+NAMES = (FIRST_TOKEN, STAGE, SYNC, SAVE, DECODE, DECODE_STEP, FFN, PREFILL_ATTN)
 
 
 def span(name: str) -> _RecordFunctionFast:
